@@ -1,29 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's hybrid query path once on one NVIDIA GPU.
+"""Drive the PyTorch / CUDA port's query paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, each printing lines tagged with its name:
 
-  device   require CUDA, print the card's name and power limit (nvidia-smi), turn TF32 off
-  build    compile wax_tpu_torch/csrc/*.cu (nvcc, sm_90a) and print the seconds
-  kernels  hold kernels K1 (packed-key scan) and K2 (exact scan) against their plain
-           torch twins: exact-arithmetic data must agree bit for bit, random unit
-           vectors within the stated tolerances; kernel and plain times (CUDA events)
-  ingest   102,400 synthetic documents (32 Zipf words each) into a HybridSearchEngine
-           on the card: BM25 builder on the host, full-width MiniLM (random weights,
-           bf16) in batches of 256 into the flat vector engine
-  serve    4 batches of 256 text queries through both lanes (vector lane: embed +
-           FlatVectorEngine.search, whose "auto" backend is K1; BM25 lane: bm25_topk,
-           `any` mode x3 and `all` mode x1) and weighted RRF, plus one batch of
-           exact-score requests (flat_scan_topk backend="pallas_exact", K2); launch
-           counts are reset before and read after this phase
-  checks   repeat serving is bit-identical; vector-lane top-10 against the plain exact
-           scan of the snapshot copied to the CPU; BM25 lane against the CPU scorer;
-           the bf16 encoder against its f32 CPU run
+  device    require CUDA, print the card's name and power limit (nvidia-smi), turn TF32 off
+  build     compile wax_tpu_torch/csrc/*.cu (nvcc, sm_90a, one process per source) and
+            print the seconds and each kernel's registers and spills
+  kernels   hold kernels K1 (packed-key scan) and K2 (exact scan) against their plain
+            torch twins: exact-arithmetic data must agree bit for bit, random unit
+            vectors within the stated tolerances; kernel and plain times (CUDA events)
+  kernels2  the same for K6 (chunk maxima) and K7 (bucket rescore) at the 1M-row
+            shapes: 1,048,576 x 384 and 1,048,576 x 768 bf16, B = 256
+  ingest    102,400 synthetic documents (32 Zipf words each) into a HybridSearchEngine
+            on the card: BM25 builder on the host, full-width MiniLM (random weights,
+            bf16) in batches of 256 into the flat vector engine
+  serve     4 batches of 256 text queries through both lanes (vector lane: embed +
+            FlatVectorEngine.search, whose "auto" backend is K1; BM25 lane: bm25_topk,
+            `any` mode x3 and `all` mode x1) and weighted RRF, plus one batch of
+            exact-score requests (flat_scan_topk backend="pallas_exact", K2)
+  checks    repeat serving is bit-identical; vector-lane top-10 against the plain exact
+            scan of the snapshot copied to the CPU; BM25 lane against the CPU scorer;
+            the bf16 encoder against its f32 CPU run
+  engine_1m path (a): 1,048,576 synthetic documents into a HybridSearchEngine with
+            the "auto" postings budget (4,096 at this size) and seeded unit vectors
+            into its FlatVectorEngine (bf16 at this size; capacity 1,048,576, so
+            "auto" scans with chunkmax: K6 then K7). 4 batches of 256 queries (`any`
+            x3, `all` x1) through the vector lane, `search.unified._bm25_run` (budgeted
+            candidates, then the exact rescore K3) and host RRF; then again with
+            `lex_sharded` (chunked candidates K4, then K3). Checks: repeat serving
+            bit-identical, the vector lane against the plain exact scan, both BM25
+            lanes against the port's plain path on a CPU copy
+  hybrid_1m path (b): `sharded_hybrid_topk` on the one-GPU mesh at the bench's
+            hybrid_1m_x384 shape (1,048,576 rows x 384 bf16, B 256, k 10, 16,384
+            terms, 16-term queries, budget 3,072, seeds 3/5/7), timed with the term
+            ids perturbed per call; K3 and K4 held against their plain twins on this
+            path's own inputs; the fused ids against the same program on a CPU copy
 
-It exits non-zero on any failure, and when no CUDA device is present. The line before
-the last is a JSON object of per-kernel results; the last line is
+Each serving phase sets the launch counts to 0 just before it runs and reads them just
+after; every kernel of its path must have launched. It exits non-zero on any failure,
+and when no CUDA device is present. The line before the last is a JSON object of
+per-kernel results; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -45,6 +63,12 @@ N_DOCS, DOC_WORDS, VOCAB_WORDS = 102_400, 32, 8192
 # step apart: K1's tolerance is the f32 tolerance plus one truncation step.
 F32_TOL = 1e-5
 TRUNC_REL = 2.0**-12
+N_1M = 1_048_576
+# the least time the card could take: bytes over the memory rate, operations over the
+# peak rate of their type (NVIDIA H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12}
+KERNEL_IDS = ("K1", "K2", "K3", "K4", "K6", "K7")
 
 
 def fail(msg: str) -> None:
@@ -58,6 +82,65 @@ def check(cond: bool, msg: str) -> None:
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """(bound_ms, bound_by) for work that moves `nbytes` and does `ops` operations of
+    type `kind`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def launch_counts() -> dict:
+    from wax_tpu_torch.ops import bm25_chunked_pallas, bm25_rescore, chunkmax_scan, flat_scan, ivf_kernel
+
+    return {"K1": flat_scan.K1_LAUNCHES, "K2": flat_scan.K2_LAUNCHES, "K3": bm25_rescore.K3_LAUNCHES,
+            "K4": bm25_chunked_pallas.K4_LAUNCHES, "K6": chunkmax_scan.K6_LAUNCHES,
+            "K7": ivf_kernel.K7_LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from wax_tpu_torch.ops import bm25_chunked_pallas, bm25_rescore, chunkmax_scan, flat_scan, ivf_kernel
+
+    flat_scan.K1_LAUNCHES = flat_scan.K2_LAUNCHES = 0
+    bm25_rescore.K3_LAUNCHES = bm25_chunked_pallas.K4_LAUNCHES = 0
+    chunkmax_scan.K6_LAUNCHES = ivf_kernel.K7_LAUNCHES = 0
+
+
+def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> None:
+    """Run fn() `iters` times under torch.profiler and print the device's busy share of
+    the window (device time of all kernels / wall time) and the device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        log(phase, f"profile: no device time recorded over {wall_ms:.3f} ms of wall time (not measured)")
+        return
+    rows.sort(reverse=True)
+    names = {"k1_packed_sel": "K1", "k2_scan_topk": "K2", "k3_rescore": "K3", "k4_chunked": "K4",
+             "k6_chunk_maxima": "K6", "k7_bucket": "K7"}
+
+    def short(key):
+        for frag, kid in names.items():
+            if frag in key:
+                return kid
+        return key[:60]
+
+    log(phase, f"profile over {iters} calls: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}%); device ms by kernel: "
+        + "; ".join(f"{short(k)} {ms:.3f} ({n}x)" for ms, n, k in rows[:top]))
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -177,6 +260,12 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if name.startswith("slice") and k == FETCH_K and not exact:
             r["ms"], r["plain_ms"] = ms, plain_ms
+            (b, d), n = q.shape, emb.shape[0]
+            out_bytes = b * (n // tn) * k * (4 if kern == "K1" else 8)
+            r["bound_ms"], r["bound_by"] = bound(4 * (b * d + n * d + n) + out_bytes, 2 * b * n * d, "fp32")
+            r["library_ms"] = cuda_ms(lambda: torch.matmul(q, emb.t()))
+            log("kernels", f"{name} {kern}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"library (torch.matmul f32) {r['library_ms']:.4f} ms")
 
 
 def kernel_phase(dev, seed: int, quick: bool = False) -> dict:
@@ -236,8 +325,8 @@ def kernel_phase(dev, seed: int, quick: bool = False) -> dict:
 # ------------------------------------------------------------------------------ corpus
 
 
-def make_corpus(seed: int):
-    """(vocabulary, documents, queries): an 8,192-word synthetic vocabulary, 102,400
+def make_corpus(seed: int, n_docs: int = N_DOCS):
+    """(vocabulary, documents, queries): an 8,192-word synthetic vocabulary, `n_docs`
     documents of 32 words and 4 x 256 queries of 6-10 words, words drawn Zipf (s=1)."""
     import numpy as np
 
@@ -250,8 +339,8 @@ def make_corpus(seed: int):
     rng.shuffle(words)  # Zipf rank independent of spelling
     p = 1.0 / np.arange(1, VOCAB_WORDS + 1)
     p /= p.sum()
-    draws = rng.choice(VOCAB_WORDS, (N_DOCS, DOC_WORDS), p=p)
-    docs = [" ".join(words[i] for i in row) for row in draws]
+    draws = rng.choice(VOCAB_WORDS, (n_docs, DOC_WORDS), p=p)
+    docs = [" ".join(map(words.__getitem__, row)) for row in draws.tolist()]
     queries = [
         [" ".join(words[i] for i in rng.choice(VOCAB_WORDS, int(rng.integers(6, 11)), p=p)) for _ in range(256)]
         for _ in range(4)
@@ -378,7 +467,7 @@ def serve_phase(engine, queries):
     modes = ["any", "any", "any", "all"]
     timings: dict = {}
     served = []
-    fs.K1_LAUNCHES = fs.K2_LAUNCHES = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for texts, mode in zip(queries, modes):
@@ -467,6 +556,469 @@ def checks_phase(engine, queries, served, exact_req, modes):
     log("checks", f"encoder bf16 (card) vs f32 (CPU), same weights: min cosine {float(cos.min()):.5f}")
 
 
+# ---------------------------------------------------------------- kernels K6 and K7
+
+
+def _grid_bf16(g, shape, dev):
+    """Entries k/8 in [-1, 1] as bf16: every dot product is exact in f32."""
+    import torch
+
+    return torch.randint(-8, 9, shape, generator=g, device=dev, dtype=torch.int8).to(torch.bfloat16).mul_(0.125)
+
+
+def kernel2_phase(dev, seed: int) -> dict:
+    """K6 (chunk maxima) and K7 (bucket rescore of the winning chunks) against their
+    plain twins at 1,048,576 x 384 (the slice shape) and 1,048,576 x 768 bf16, B 256:
+    exact-arithmetic data bit for bit, random unit vectors within F32_TOL."""
+    import torch
+
+    from wax_tpu_torch.ops import chunkmax_scan as cm
+    from wax_tpu_torch.ops import ivf_kernel as ivf
+    from wax_tpu_torch.ops.flat_scan import NEG_INF, normalize_rows
+    from wax_tpu_torch.ops.topk import blockmax_topk
+
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    results = {"K6": {"max_abs_err": 0.0}, "K7": {"max_abs_err": 0.0}}
+    b = 256
+    for d, kc in ((384, 20), (768, 24)):
+        for exact in (True, False):
+            name = f"{N_1M}x{d} bf16 B={b} probes={kc} {'exact-data' if exact else 'random-unit'}"
+            if exact:
+                emb, q = _grid_bf16(g, (N_1M, d), dev), _grid_bf16(g, (b, d), dev)
+            else:
+                emb = normalize_rows(torch.randn((N_1M, d), generator=g, device=dev)).to(torch.bfloat16)
+                q = normalize_rows(torch.randn((b, d), generator=g, device=dev)).to(torch.bfloat16)
+            bias = torch.zeros(N_1M, device=dev)
+            bias[N_1M - 1000:] = NEG_INF  # a dead tail: the last chunks are partly live
+            cmk, cmp = cm.chunk_maxima(q, emb, bias), cm._chunk_maxima_plain(q, emb, bias)
+            torch.cuda.synchronize()
+            err6 = float((cmk - cmp).abs().max())
+            check(torch.equal(cmk, cmp) if exact else err6 <= F32_TOL, f"{name}: K6 differs (max {err6:.3g})")
+            _, probes = blockmax_topk(cmp, kc)  # the chunks chunkmax_scan_topk rescores
+            probes = probes.to(torch.int32).contiguous()
+            counts = (bias.reshape(-1, 128) > NEG_INF * 0.5).sum(dim=1).to(torch.int32)
+            emb3, qf = emb.view(-1, 128, d), q.float()
+            (kv, kp), (pv, pp) = ivf.bucket_rescore(qf, probes, counts, emb3, kc), \
+                ivf._bucket_rescore_plain(qf, probes, counts, emb3, kc)
+            torch.cuda.synchronize()
+            err7 = float((kv - pv).abs().max())
+            if exact:
+                check(torch.equal(kv, pv) and torch.equal(kp, pp), f"{name}: K7 differs from its plain twin")
+                overlap = 1.0
+            else:
+                check(err7 <= F32_TOL, f"{name}: K7 values beyond {F32_TOL} (max {err7:.3g})")
+                hit = 0
+                for i in range(b):
+                    a, p = set(kp[i].tolist()), set(pp[i].tolist())
+                    hit += len(a & p)
+                    for pos in a ^ p:  # only near-ties of the k-th value may differ
+                        s = float((emb3[probes[i, pos // 128].long(), pos % 128].float() * qf[i]).sum())
+                        check(abs(s - float(pv[i, kc - 1])) <= F32_TOL, f"{name}: K7 position {pos} not a near-tie")
+                overlap = hit / pp.numel()
+                results["K6"]["max_abs_err"] = max(results["K6"]["max_abs_err"], err6)
+                results["K7"]["max_abs_err"] = max(results["K7"]["max_abs_err"], err7)
+            msg = f"{name}: K6 agree (max_abs_err={err6:.3g}); K7 agree (max_abs_err={err7:.3g}, overlap={overlap:.4f})"
+            if not exact:
+                t = {
+                    "K6": cuda_ms(lambda: cm.chunk_maxima(q, emb, bias)),
+                    "K6 plain": cuda_ms(lambda: cm._chunk_maxima_plain(q, emb, bias)),
+                    "K6 library": cuda_ms(lambda: torch.matmul(q, emb.t())),
+                    "K7": cuda_ms(lambda: ivf.bucket_rescore(qf, probes, counts, emb3, kc)),
+                    "K7 plain": cuda_ms(lambda: ivf._bucket_rescore_plain(qf, probes, counts, emb3, kc)),
+                }
+                b6 = bound(N_1M * d * 2 + b * d * 2 + N_1M * 4 + b * (N_1M // 128) * 4, 2 * b * N_1M * d, "bf16")
+                b7 = bound(b * kc * 128 * d * 2 + b * d * 4 + b * kc * 4 + (N_1M // 128) * 4 + b * kc * 8,
+                           2 * b * kc * 128 * d, "bf16")
+                msg += (f"; K6 {t['K6']:.4f} ms, plain {t['K6 plain']:.4f} ms, library (torch.matmul bf16) "
+                        f"{t['K6 library']:.4f} ms, bound {b6[0]:.4f} ms ({b6[1]}); K7 {t['K7']:.4f} ms, plain "
+                        f"{t['K7 plain']:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]})")
+                if d == 384:  # the slice shape (path b) goes into the kernels line
+                    results["K6"].update(ms=t["K6"], plain_ms=t["K6 plain"], library_ms=t["K6 library"],
+                                         bound_ms=b6[0], bound_by=b6[1])
+                    results["K7"].update(ms=t["K7"], plain_ms=t["K7 plain"], library_ms=None,
+                                         bound_ms=b7[0], bound_by=b7[1])
+            log("kernels2", msg)
+            del emb, q, cmk, cmp, emb3
+            torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------- engine_1m
+
+
+def _cpu_copy(obj):
+    """A copy of a snapshot dataclass with every tensor field on the CPU."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+                                       if torch.is_tensor(getattr(obj, f.name))})
+
+
+def serve_1m_batch(engine, texts, qv, mode, timings=None):
+    """Both lanes of one batch through the engine: the vector lane
+    (FlatVectorEngine.search) and the BM25 lane (search.unified._bm25_run)."""
+    import torch
+
+    from wax_tpu_torch.search.unified import _bm25_run
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    vv, vf = engine.vector.search(qv, FETCH_K)
+    ev[1].record()
+    term_ids = _term_batch(engine, texts, mode)
+    bv, bf = _bm25_run(engine, term_ids, FETCH_K, mode)
+    bv, bf = bv.cpu().numpy(), bf.cpu().numpy()
+    ev[2].record()
+    ev[2].synchronize()
+    if timings is not None:
+        timings.setdefault("vector", []).append(ev[0].elapsed_time(ev[1]))
+        timings.setdefault("bm25", []).append(ev[1].elapsed_time(ev[2]))
+    return vv, vf, bv, bf, term_ids
+
+
+def engine_1m_phase(dev, seed: int) -> dict:
+    """Path (a): the engine at 1,048,576 documents; returns this phase's launches."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.ops.bm25_candidates import bm25_candidates_topk
+    from wax_tpu_torch.ops.flat_scan import flat_scan_topk, normalize_rows
+    from wax_tpu_torch.parallel.mesh import data_mesh
+    from wax_tpu_torch.parallel.sharded_hybrid import sharded_bm25_topk
+    from wax_tpu_torch.search.engine import HybridSearchEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, docs, queries = make_corpus(seed + 1, N_1M)
+    t_corpus = time.perf_counter() - t0
+    engine = HybridSearchEngine(None, dim=384, device=dev, lex_postings_budget="auto")
+    # the same builders behind a second engine whose BM25 lane is the sharded program
+    engine_sh = HybridSearchEngine(None, dim=384, device=dev, lex_sharded=True, lex_postings_budget="auto")
+    engine_sh.lex, engine_sh.vector = engine.lex, engine.vector
+    t0 = time.perf_counter()
+    for fid, text in enumerate(docs):
+        engine.index_text(fid, text)
+    t_lex = time.perf_counter() - t0
+    del docs
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(seed + 2)
+    for i in range(0, N_1M, 131_072):
+        m = min(131_072, N_1M - i)
+        engine.index_embedding_batch(np.arange(i, i + m), torch.randn((m, 384), generator=g).numpy())
+    t_vec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snap, lex = engine.vector.snapshot(), engine.lex_snapshot()
+    torch.cuda.synchronize()
+    t_snap = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lex_sh = engine_sh.lex_sharded_snapshot()
+    torch.cuda.synchronize()
+    t_snap_sh = time.perf_counter() - t0
+    check(snap.capacity == N_1M and snap.emb.dtype == torch.bfloat16 and snap.contiguous,
+          f"dense snapshot {snap.capacity} rows {snap.emb.dtype}: auto would not pick chunkmax")
+    check(lex.fwd_fused is not None and lex_sh.pk_chunks is not None, "the auto budget did not truncate a term")
+    log("engine_1m", f"{N_1M} docs: host seconds corpus={t_corpus:.2f} lex={t_lex:.2f} vectors={t_vec:.2f} "
+        f"snapshots={t_snap:.2f} sharded snapshot={t_snap_sh:.2f}; budget="
+        f"{engine.lex.resolve_postings_budget(N_1M)} terms={lex.n_terms} postings kept={lex.n_postings} "
+        f"max_df={lex.max_df} fwd_width={lex.fwd_width} impact chunks={lex.pk_chunks.shape[0] // 1024} "
+        f"qb={lex.pk_qb}; dense capacity={snap.capacity} dtype={snap.emb.dtype}")
+
+    # query vectors: seeded perturbations of known documents (each is its own top-1)
+    rng = np.random.default_rng(seed + 3)
+    src = rng.integers(0, N_1M, (4, 256))
+    qvs = []
+    for row in src:
+        base = torch.from_numpy(np.stack([engine.vector.builder.vector(int(f)) for f in row]))
+        qvs.append(normalize_rows(base + 0.05 * torch.randn(base.shape, generator=g)).to(dev))
+    modes = ["any", "any", "any", "all"]
+    served, stats = {}, {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    for label, eng in (("lanes", engine), ("sharded", engine_sh)):
+        timings: dict = {}
+        t0 = time.perf_counter()
+        out = []
+        for texts, qv, mode in zip(queries, qvs, modes):
+            vv, vf, bv, bf, term_ids = serve_1m_batch(eng, texts, qv, mode, timings)
+            tf = time.perf_counter()
+            fused = fuse(vv, vf, bv, bf)
+            timings.setdefault("fusion", []).append((time.perf_counter() - tf) * 1e3)
+            out.append((vv, vf, bv, bf, term_ids, fused))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        served[label] = out
+        med = {k: statistics.median(v) for k, v in timings.items()}
+        stats[label] = (wall, med)
+        for i, (vv, vf, bv, bf, _, fused) in enumerate(out):
+            check(vf.shape == (256, FETCH_K) and bf.shape == (256, FETCH_K), f"{label} batch {i}: lane shapes")
+            check(all(len(h) > 0 for h in fused), f"{label} batch {i}: a query got no fused hit")
+        log("engine_1m", f"serve ({label}): 1024 queries (modes {modes}) in {wall:.3f} s = {1024 / wall:.1f} "
+            f"queries/s; per-batch medians ms: vector={med['vector']:.3f} bm25={med['bm25']:.3f} "
+            f"fusion(host)={med['fusion']:.3f}")
+    launches = launch_counts()
+    for kern in ("K3", "K4", "K6", "K7"):
+        check(launches[kern] > 0, f"engine_1m: {kern} was not launched")
+    for label, eng in (("lanes", engine), ("sharded", engine_sh)):
+        device_profile(f"engine_1m {label}", lambda: fuse(*serve_1m_batch(eng, queries[0], qvs[0], "any")[:4]),
+                       iters=1)
+    log("engine_1m", f"launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # (i) repeat serving is bit-identical
+    for label, eng in (("lanes", engine), ("sharded", engine_sh)):
+        for i in (0, 3):
+            again = serve_1m_batch(eng, queries[i], qvs[i], modes[i])
+            for a, b, what in zip(again[:4], served[label][i][:4], ("vector vals", "vector ids", "bm25 vals",
+                                                                    "bm25 ids")):
+                check(np.array_equal(a, b), f"engine_1m {label} batch {i}: repeat serving changed {what}")
+    # (ii) the vector lane (K6 + K7) against the plain exact scan of the same snapshot
+    vv, vf = served["lanes"][0][0], served["lanes"][0][1]
+    pv, _, pf = flat_scan_topk(qvs[0], snap, FETCH_K, backend="xla")
+    pv, pf = pv.cpu().numpy(), pf.cpu().numpy()
+    err = float(np.abs(vv - pv).max())
+    check(err <= F32_TOL, f"engine_1m vector lane scores differ from the plain scan by {err:.3g}")
+    ov = np.mean([len(set(a) & set(b)) / FETCH_K for a, b in zip(vf, pf)])
+    check(ov >= 0.999, f"engine_1m vector lane overlap with the plain exact scan {ov:.4f} < 0.999")
+    top1 = float(np.mean(vf[:, 0] == src[0]))
+    check(top1 >= 0.99, f"engine_1m vector lane finds the perturbed source document for {top1:.3f} of queries")
+    # (iii) both BM25 lanes against the port's plain path on a CPU copy (64 queries)
+    lex_cpu, lex_sh_cpu, cpu_mesh = _cpu_copy(lex), _cpu_copy(lex_sh), data_mesh("cpu")
+    for i in (0, 3):
+        tids = torch.from_numpy(served["lanes"][i][4][:64])
+        cv, _, cf = bm25_candidates_topk(tids, lex_cpu, FETCH_K, mode=modes[i])
+        sv, sf = sharded_bm25_topk(tids, lex_sh_cpu, FETCH_K, cpu_mesh, mode=modes[i], backend="candidates_pallas")
+        for label, (v, f) in (("lanes", (cv, cf)), ("sharded", (sv, sf))):
+            gv, gf = served[label][i][2][:64], served[label][i][3][:64]
+            check(np.array_equal(f.numpy(), gf), f"engine_1m {label} batch {i}: BM25 ids differ from the CPU plain path")
+            check(np.allclose(v.numpy(), gv, rtol=1e-6, atol=0.0),
+                  f"engine_1m {label} batch {i}: BM25 scores differ beyond rtol 1e-6")
+    log("engine_1m", f"checks: repeat serving bit-identical (both engines, an `any` and the `all` batch); "
+        f"vector lane vs plain exact scan max_abs_err={err:.3g} overlap={ov:.4f} top-1 source={top1:.3f}; "
+        f"BM25 lanes (candidates+K3, sharded K4+K3) equal to the CPU plain path on 64 queries "
+        f"(ids equal, scores rtol 1e-6)")
+    log("engine_1m", f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+# ---------------------------------------------------------------------------- hybrid_1m
+
+
+def synth_sharded_lex(n: int, n_terms: int, budget: int, dev, seed: int = 5, per_doc: int = 64):
+    """The bench's synthetic Zipf (s = 0.7) postings as a one-shard ShardedLexIndex:
+    per-term row-sorted slices, df clamped at `budget` (impact-budget semantics),
+    doc_len == avgdl == 64, the forward index and the impact chunks. Same draws as
+    bench.py `_synth_sharded_lex`, without the TPU's padding and reversed copies."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.index.lex import build_impact_chunks, fuse_forward
+    from wax_tpu_torch.parallel.sharded_hybrid import ShardedLexIndex
+
+    rng = np.random.default_rng(seed)
+    raw_df = (1.0 / np.arange(1, n_terms + 1)) ** 0.7
+    df_natural = np.minimum((raw_df / raw_df.sum() * per_doc * n).astype(np.int64) + 1, n)
+    df = np.minimum(df_natural, budget)
+    max_df = int(((df.max() + 127) // 128) * 128)
+    offsets = np.zeros(n_terms + 1, np.int64)
+    offsets[1:] = np.cumsum(df)
+    total = int(offsets[-1])
+    doc_rows = np.zeros(total, np.int32)
+    wnorm = np.zeros(total, np.float32)
+    tfs = np.zeros(total, np.float32)
+    for t in range(n_terms):
+        a, bb = int(offsets[t]), int(offsets[t + 1])
+        m = bb - a
+        rows = np.sort(rng.choice(n, size=m, replace=False)) if m < n // 4 else np.sort(rng.permutation(n)[:m])
+        tf = rng.integers(1, 5, m).astype(np.float32)
+        doc_rows[a:bb] = rows
+        tfs[a:bb] = tf
+        wnorm[a:bb] = tf * 2.2 / (tf + 1.2)
+    idf = np.log(1.0 + (n - df + 0.5) / (df + 0.5)).astype(np.float32)
+    tid_all = np.repeat(np.arange(n_terms, dtype=np.int32), df)
+    order = np.argsort(doc_rows, kind="stable")  # stable: tid-ascending per document
+    sr = doc_rows[order]
+    widths = np.bincount(sr, minlength=n)
+    l_pad = max(128, int(((widths.max() + 127) // 128) * 128))
+    starts = np.zeros(n + 1, np.int64)
+    np.cumsum(widths, out=starts[1:])
+    pos = np.arange(total, dtype=np.int64) - starts[sr]
+    ft = np.full((n, l_pad), -1, np.int32)
+    fw = np.zeros((n, l_pad), np.float32)
+    ft[sr, pos] = tid_all[order]
+    fw[sr, pos] = wnorm[order]
+    fwd_width = int(widths.max())
+    fz = fuse_forward(ft, fw, fwd_width)
+    pk, cb, cc, qb = build_impact_chunks(doc_rows, wnorm, offsets, idf.astype(np.float64), n)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)[None]).to(dev)
+
+    return ShardedLexIndex(
+        doc_rows=put(doc_rows), tfs=put(tfs), offsets=put(offsets.astype(np.int32)), idf=put(idf),
+        doc_len=put(np.full(n, 64.0, np.float32)), frame_ids=put(np.arange(n, dtype=np.int32)),
+        live=put(np.ones(n, bool)), row_base=torch.zeros(1, dtype=torch.int32, device=dev),
+        avgdl=torch.tensor(64.0, device=dev), wnorm=put(wnorm), fwd_tids=put(ft), fwd_wnorm=put(fw),
+        fwd_fused=put(fz), pk_chunks=put(pk), chunk_base=put(cb), chunk_counts=put(cc), max_df=max_df,
+        pk_qb=qb, pk_max_chunks=int(cc.max()), fwd_width=fwd_width,
+    )
+
+
+def _k3_k4_cases(lex, tids, results):
+    """K4 and K3 against their plain twins on this path's own inputs: the chunk
+    windows of the batch's queries, and the candidates K4 ranks for the rescore."""
+    import torch
+
+    from wax_tpu_torch.index.lex import PK_CHUNK
+    from wax_tpu_torch.ops import bm25_chunked_pallas as ck
+    from wax_tpu_torch.ops import bm25_rescore as rs
+    from wax_tpu_torch.ops.topk import stable_top_k
+
+    b, q = tids.shape
+    slots = ck.slots_for_query(q)
+    pk = lex.pk_chunks[0]
+    win = ck.pack_query_chunks(tids, lex.chunk_base[0], lex.chunk_counts[0], slots, lex.pk_max_chunks,
+                               pk.shape[0] // PK_CHUNK - 1)
+    seg = 1
+    while (1 << seg) < 2 * q:
+        seg += 1
+    for mode in ("any", "count"):
+        (kr, kk), (pr, pkk) = ck.chunked_sel(win, pk, qb=lex.pk_qb, seg_log2=seg, mode=mode), \
+            ck._chunked_sel_plain(win, pk, lex.pk_qb, seg, mode, 3)
+        torch.cuda.synchronize()
+        check(torch.equal(kr, pr) and torch.equal(kk, pkk), f"K4 ({mode}) differs from its plain twin")
+    # the rescore's input, as the lane builds it: top-256 candidates by key, row-sorted
+    _, cpos = stable_top_k(pkk, 256)
+    crows = torch.gather(pr, 1, cpos)
+    big = 2**30
+    rows_sorted, _ = torch.sort(torch.where(crows < 0, big, crows.long()), dim=-1)
+    rows_sorted = torch.where(rows_sorted >= big, -1, rows_sorted).to(torch.int32).contiguous()
+    tids_q, idf_q = rs._query_planes(tids, lex.idf[0])
+    tids_q, idf_q = tids_q.contiguous(), idf_q.contiguous()
+    fused = lex.fwd_fused[0]
+    (ks, kc), (ps, pc) = rs.rescore_fused(fused, rows_sorted, tids_q, idf_q), \
+        rs._rescore_fused_plain(fused, rows_sorted, tids_q, idf_q)
+    torch.cuda.synchronize()
+    rel = float(((ks - ps).abs() / ps.abs().clamp(min=1e-30)).max())
+    check(torch.equal(kc, pc) and torch.equal(ks, ps), f"K3 differs from its plain twin (max relative {rel:.3g})")
+    # exact-arithmetic weights and idf (multiples of 1/8 and 1/4): bit for bit
+    l2 = fused.shape[1] // 2
+    tid_lanes = fused[:, :l2]
+    w_exact = torch.where(tid_lanes >= 0, ((tid_lanes % 8) + 1).float() / 8.0, 0.0)
+    fused_exact = torch.cat([tid_lanes, w_exact.view(torch.int32)], dim=1).contiguous()
+    idf_exact = torch.where(tids_q >= 0, ((tids_q % 4) + 1).float() / 4.0, 0.0).contiguous()
+    (es, ec), (xs, xc) = rs.rescore_fused(fused_exact, rows_sorted, tids_q, idf_exact), \
+        rs._rescore_fused_plain(fused_exact, rows_sorted, tids_q, idf_exact)
+    torch.cuda.synchronize()
+    check(torch.equal(es, xs) and torch.equal(ec, xc), "K3 differs from its plain twin on exact-arithmetic data")
+    f = rows_sorted.shape[1]
+    t4 = (cuda_ms(lambda: ck.chunked_sel(win, pk, qb=lex.pk_qb, seg_log2=seg, mode="any")),
+          cuda_ms(lambda: ck._chunked_sel_plain(win, pk, lex.pk_qb, seg, "any", 3)))
+    t3 = (cuda_ms(lambda: rs.rescore_fused(fused, rows_sorted, tids_q, idf_q)),
+          cuda_ms(lambda: rs._rescore_fused_plain(fused, rows_sorted, tids_q, idf_q)))
+    n = slots * PK_CHUNK
+    stages = sum(1 + (run.bit_length() - 1) for run in (PK_CHUNK << i for i in range(slots.bit_length() - 1)))
+    b4 = bound(b * n * 4 + b * slots * 4 + 2 * b * 3 * PK_CHUNK * 4, b * stages * (n // 2), "fp32")
+    b3 = bound(b * f * 2 * l2 * 4 + b * f * 4 + b * q * 8 + b * f * 8, 2 * b * f * l2 * q, "fp32")
+    results["K4"] = dict(max_abs_err=0.0, ms=t4[0], plain_ms=t4[1], library_ms=None, bound_ms=b4[0], bound_by=b4[1])
+    results["K3"] = dict(max_abs_err=float((ks - ps).abs().max()), ms=t3[0], plain_ms=t3[1], library_ms=None,
+                         bound_ms=b3[0], bound_by=b3[1])
+    log("hybrid_1m", f"K4 [{b} queries x {slots} slots x {PK_CHUNK}] equal to its plain twin in `any` and `count` "
+        f"modes; {t4[0]:.4f} ms, plain {t4[1]:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]}, {stages} merge stages)")
+    log("hybrid_1m", f"K3 [{b} x {f} candidates, L2={l2}, Q={q}] bit-equal to its plain twin on this path's "
+        f"weights and on exact-arithmetic ones; {t3[0]:.4f} ms, plain {t3[1]:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]})")
+
+
+def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) -> dict:
+    """Path (b): the fused one-device program at the bench's hybrid_1m_x384 shape;
+    returns this phase's launches."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.ops.flat_scan import normalize_rows
+    from wax_tpu_torch.parallel import sharded_hybrid as sh
+    from wax_tpu_torch.parallel.mesh import data_mesh
+    from wax_tpu_torch.parallel.sharded_scan import ShardedDenseIndex
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    b, d, k, q_terms, budget = 256, 384, 10, 16, 3072
+    g = torch.Generator(device=dev).manual_seed(3)
+    emb = normalize_rows(torch.randn((N_1M, d), generator=g, device=dev)).to(torch.bfloat16)
+    q0 = normalize_rows(torch.randn((b, d), generator=g, device=dev))
+    t0 = time.perf_counter()
+    lex = synth_sharded_lex(N_1M, n_terms, budget, dev)
+    t_lex = time.perf_counter() - t0
+    dense = ShardedDenseIndex(emb=emb, frame_ids=torch.arange(N_1M, dtype=torch.int32, device=dev),
+                              bias=torch.zeros(N_1M, device=dev), contiguous=True)
+    tids0 = torch.from_numpy(np.random.default_rng(7).integers(0, n_terms, (b, q_terms)).astype(np.int32)).to(dev)
+    mesh = data_mesh(dev)
+    log("hybrid_1m", f"{N_1M} rows x {d} bf16; synthetic postings built in {t_lex:.2f} s: {lex.doc_rows.shape[1]} "
+        f"postings, {n_terms} terms, budget {budget}, max_df={lex.max_df}, fwd_width={lex.fwd_width}, "
+        f"impact chunks={lex.pk_chunks.shape[1] // 1024}, qb={lex.pk_qb}")
+    fv0, ff0 = sh.sharded_hybrid_topk(q0, tids0, dense, lex, k, mesh)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(iters):
+        sh.sharded_hybrid_topk(q0, (tids0 + i) % n_terms, dense, lex, k, mesh)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for kern in ("K3", "K4", "K6", "K7"):
+        check(launches[kern] > 0, f"hybrid_1m: {kern} was not launched")
+    per_call = [ev[i].elapsed_time(ev[i + 1]) for i in range(iters)]
+    med = statistics.median(per_call)
+    lane = {"dense": [], "bm25": []}
+    for i in range(5):
+        t2 = (tids0 + i) % n_terms
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        sh._dense_lane(q0, dense, 20, True, False)
+        e[1].record()
+        sh._bm25_lane(t2, lex, 20, "any", "candidates_pallas")
+        e[2].record()
+        e[2].synchronize()
+        lane["dense"].append(e[0].elapsed_time(e[1]))
+        lane["bm25"].append(e[1].elapsed_time(e[2]))
+    log("hybrid_1m", f"sharded_hybrid_topk B={b} k={k}: {iters} calls (term ids perturbed per call) in "
+        f"{wall:.3f} s wall; per call median {med:.3f} ms (min {min(per_call):.3f}, max {max(per_call):.3f}) "
+        f"= {b / (med / 1e3):.1f} queries/s; lane medians ms: dense (K6+K7)="
+        f"{statistics.median(lane['dense']):.3f} bm25 (K4+K3)={statistics.median(lane['bm25']):.3f}; "
+        f"launches {launches}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_profile("hybrid_1m", lambda: sh.sharded_hybrid_topk(q0, tids0, dense, lex, k, mesh))
+    _k3_k4_cases(lex, tids0, results)
+
+    # the fused ids against the same program through the plain versions (CPU copy)
+    nq = 32
+    fv, ff = fv0[:nq].cpu(), ff0[:nq].cpu()
+    dense_cpu, lex_cpu = _cpu_copy(dense), _cpu_copy(lex)
+    cv, cf = sh.sharded_hybrid_topk(q0[:nq].cpu(), tids0[:nq].cpu(), dense_cpu, lex_cpu, k, data_mesh("cpu"),
+                                    lex_backend="candidates_pallas")
+    gdv, gdr = sh._dense_lane(q0[:nq], dense, 20, True, False)
+    cdv, cdr = sh._dense_lane(q0[:nq].cpu(), dense_cpu, 20, True, False)
+    gbv, gbf = sh._bm25_lane(tids0[:nq], lex, 20, "any", "candidates_pallas")
+    cbv, cbf = sh._bm25_lane(tids0[:nq].cpu(), lex_cpu, 20, "any", "candidates_pallas")
+    check(torch.equal(gbf.cpu(), cbf) and torch.allclose(gbv.cpu(), cbv, rtol=1e-6, atol=0.0),
+          "hybrid_1m: BM25 lane (K4+K3) differs from the plain path")
+    derr = float((gdv.cpu() - cdv).abs().max())
+    check(derr <= F32_TOL, f"hybrid_1m: dense lane (K6+K7) scores differ from the plain path by {derr:.3g}")
+    same = [torch.equal(ff[i], cf[i]) for i in range(nq)]
+    for i in range(nq):  # a fused list may differ only through a near-tie of the dense lane
+        check(same[i] or not torch.equal(gdr[i].cpu(), cdr[i]), f"hybrid_1m: query {i} fused ids differ")
+    check(sum(same) / nq >= 0.9, f"hybrid_1m: fused ids equal for only {sum(same)}/{nq} queries")
+    check(bool(torch.isfinite(fv).all()) and bool((ff[:, 0] >= 0).all()), "hybrid_1m: malformed fused output")
+    log("hybrid_1m", f"checks: fused ids equal to the plain program on a CPU copy for {sum(same)}/{nq} queries; "
+        f"BM25 lane ids equal (scores rtol 1e-6); dense lane max_abs_err={derr:.3g}")
+    log("hybrid_1m", f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 # -------------------------------------------------------------------------------- main
 
 
@@ -480,22 +1032,46 @@ def main(argv=None) -> int:
     import wax_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     build_phase()
+    t0 = time.perf_counter()
     results = kernel_phase(dev, args.seed)
+    log("kernels", f"phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    results.update(kernel2_phase(dev, args.seed))
+    log("kernels2", f"phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
     _, docs, queries = make_corpus(args.seed)
     engine = ingest_phase(dev, docs)
     served, exact_req, launches, modes = serve_phase(engine, queries)
     checks_phase(engine, queries, served, exact_req, modes)
+    log("checks", f"ingest + serve + checks phase seconds {time.perf_counter() - t0:.1f}")
+    del engine, served, docs
 
     import torch
 
+    torch.cuda.empty_cache()
+    path_a = engine_1m_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+    path_b = hybrid_1m_phase(dev, results)
+    for kern in ("K3", "K4", "K6", "K7"):
+        launches[kern] = path_a[kern] + path_b[kern]
+
+    sources = {
+        "K1": ("packed_sel_scan_topk", "flat_scan.cu", "wax_tpu/ops/flat_scan.py:201"),
+        "K2": ("scan_topk", "flat_scan.cu", "wax_tpu/ops/flat_scan.py:299"),
+        "K3": ("rescore_fused", "bm25_rescore.cu", "wax_tpu/ops/bm25_rescore.py:218"),
+        "K4": ("chunked_candidates_sel", "bm25_chunked.cu", "wax_tpu/ops/bm25_chunked_pallas.py:115"),
+        "K6": ("chunk_maxima", "chunkmax.cu", "wax_tpu/ops/chunkmax_scan.py:45"),
+        "K7": ("bucket_rescore", "ivf_kernel.cu", "wax_tpu/ops/ivf_kernel.py:34"),
+    }
     kernels = []
-    for name, fn_line, kern in (("packed_sel_scan_topk", "wax_tpu/ops/flat_scan.py:201", "K1"),
-                                ("scan_topk", "wax_tpu/ops/flat_scan.py:299", "K2")):
+    for kern in KERNEL_IDS:
+        name, src, fn_line = sources[kern]
         r = results[kern]
         kernels.append({
-            "name": f"{kern} {name}", "route": "cuda", "source": "wax_tpu_torch/csrc/flat_scan.cu",
+            "name": f"{kern} {name}", "route": "cuda", "source": f"wax_tpu_torch/csrc/{src}",
             "replaces": fn_line, "launches": launches[kern], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

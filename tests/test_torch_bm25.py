@@ -66,7 +66,7 @@ def test_analyze_identical():
 @pytest.mark.parametrize("removed", [(), (1003, 1100, 1399)])
 def test_snapshot_arrays_identical(removed):
     jb, tb = _builders(_docs(), removed)
-    js, ts = jb.snapshot(), tb.snapshot()
+    js, ts = jb.snapshot(), tb.snapshot(device="cpu")
     p = int(np.asarray(js.offsets)[-1])
     assert ts.n_postings == p
     for f in ("doc_rows", "tfs", "wnorm"):
@@ -81,7 +81,7 @@ def test_snapshot_arrays_identical(removed):
 
 
 def test_empty_snapshot_identical():
-    js, ts = jlex.LexIndexBuilder().snapshot(), tlex.LexIndexBuilder().snapshot()
+    js, ts = jlex.LexIndexBuilder().snapshot(), tlex.LexIndexBuilder().snapshot(device="cpu")
     assert ts.n_postings == int(np.asarray(js.offsets)[-1]) == 0
     for f in ("offsets", "idf", "doc_len", "frame_ids", "active", "count", "avgdl"):
         np.testing.assert_array_equal(getattr(ts, f).numpy(), np.asarray(getattr(js, f)), err_msg=f)
@@ -107,7 +107,7 @@ def _queries(tb):
 @pytest.mark.parametrize("mode", ["any", "all"])
 def test_bm25_topk_matches(pair, mode):
     jb, tb = pair
-    js, ts = jb.snapshot(), tb.snapshot()
+    js, ts = jb.snapshot(), tb.snapshot(device="cpu")
     tids = np.stack(_queries(tb))
     for k in (5, 24):
         jv, jr, jf = (np.asarray(x) for x in jbm25.bm25_topk(jnp.asarray(tids), js, k, mode=mode))
@@ -123,7 +123,7 @@ def test_bm25_scores_match(pair):
     tids = np.stack(_queries(tb))
     for mode in ("any", "all"):
         j = np.asarray(jbm25.bm25_scores(jnp.asarray(tids), jb.snapshot(), mode=mode))
-        t = tbm25.bm25_scores(torch.from_numpy(tids), tb.snapshot(), mode=mode).numpy()
+        t = tbm25.bm25_scores(torch.from_numpy(tids), tb.snapshot(device="cpu"), mode=mode).numpy()
         np.testing.assert_allclose(t, j, rtol=1e-6, atol=0)
 
 
@@ -135,13 +135,18 @@ def test_pad_term_ids_identical():
 
 
 def test_budget_that_truncates_raises():
+    """A truncating budget no longer raises: the snapshot keeps each term's impact
+    head and carries the exact-rescore forward index and the impact chunks (their
+    arrays are held against the JAX package's in tests/test_torch_lex_budget.py)."""
     b = tlex.LexIndexBuilder(postings_budget=3)
     b.add_batch([(i, "common word") for i in range(5)])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        b.snapshot()
+    s = b.snapshot(device="cpu")
+    assert s.n_postings == 6 and s.fwd_fused is not None and s.pk_chunks is not None
+    assert s.fwd_width == 2 and s.pk_max_chunks == 1
     auto = tlex.LexIndexBuilder(postings_budget="auto")
     auto.add_batch([(i, "common word") for i in range(5)])
-    assert auto.snapshot().n_postings == 10  # exact below 256K rows
+    exact = auto.snapshot(device="cpu")
+    assert exact.n_postings == 10 and exact.fwd_tids is None  # exact below 256K rows
     assert tlex.auto_postings_floor(1_000_000) == jlex.auto_postings_floor(1_000_000)
 
 

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the GPU against their plain torch twins (needs a card).
+"""Kernels K1-K4, K6 and K7 on the GPU against their plain torch twins (needs a card).
 
 CUDA kernels have no CPU mode, so these tests skip without a CUDA device. They import
 no JAX, so they also run on a machine that has none; run them there with
@@ -12,7 +12,12 @@ import pytest
 import torch
 
 from wax_tpu_torch.index.dense import DenseIndexBuilder, Similarity
+from wax_tpu_torch.index.lex import PK_CHUNK, build_impact_chunks
+from wax_tpu_torch.ops import bm25_chunked_pallas as ck
+from wax_tpu_torch.ops import bm25_rescore as rs
+from wax_tpu_torch.ops import chunkmax_scan as cm
 from wax_tpu_torch.ops import flat_scan as fs
+from wax_tpu_torch.ops import ivf_kernel as ivf
 
 pytestmark = pytest.mark.cuda
 
@@ -20,7 +25,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1/K2 kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -58,7 +63,7 @@ def test_flat_scan_topk_cuda_equals_cpu(dev):
     b.add_batch(np.arange(5000), (rng.integers(-8, 9, (5000, 64)) / 8).astype(np.float32))
     for fid in (3, 2047, 2048, 4000):
         b.remove(fid)
-    cpu, gpu = b.snapshot(), b.snapshot(device=dev)
+    cpu, gpu = b.snapshot(device="cpu"), b.snapshot(device=dev)
     q = torch.from_numpy((rng.integers(-8, 9, (13, 64)) / 8).astype(np.float32))
     for backend in ("auto", "pallas", "pallas_packed_sel", "xla", "blockmax"):
         for k in (1, 10, 100):
@@ -76,3 +81,92 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fs.scan_topk_tiles(q.cpu(), emb, bias, 5, 512)
     with pytest.raises(ValueError):
         fs.scan_topk_tiles(q.double(), emb.double(), bias, 5, 512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d", [(256, 8192, 384), (37, 4096, 768), (13, 2048, 100), (64, 4096, 96)])
+def test_k6_chunk_maxima_equal_plain_on_exact_data(dev, dtype, b, n, d):
+    g = torch.Generator().manual_seed(b + n + d)
+    q, emb = _grid(g, (b, d), dev, dtype), _grid(g, (n, d), dev, dtype)
+    bias = torch.zeros(n, device=dev)
+    bias[n - 200:] = fs.NEG_INF
+    k6 = cm.K6_LAUNCHES
+    got = cm.chunk_maxima(q, emb, bias)
+    assert cm.K6_LAUNCHES == k6 + 1
+    assert torch.equal(got, cm._chunk_maxima_plain(q, emb, bias))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nprobe,d,k", [(256, 20, 384, 10), (5, 3, 100, 128), (9, 7, 96, 1)])
+def test_k7_bucket_rescore_equal_plain_on_exact_data(dev, dtype, b, nprobe, d, k):
+    g = torch.Generator().manual_seed(b * nprobe + d)
+    c = 32
+    emb3 = _grid(g, (c, 128, d), dev, dtype)
+    emb3[1] = emb3[5]  # duplicate buckets: ties go to the lower probe rank
+    q = _grid(g, (b, d), dev)
+    probes = torch.stack([torch.randperm(c, generator=g)[:nprobe] for _ in range(b)]).to(dev, torch.int32)
+    counts = torch.randint(1, 129, (c,), generator=g).to(dev, torch.int32)
+    k7 = ivf.K7_LAUNCHES
+    kv, kp = ivf.bucket_rescore(q, probes, counts, emb3, k)
+    assert ivf.K7_LAUNCHES == k7 + 1
+    pv, pp = ivf._bucket_rescore_plain(q, probes, counts, emb3, k)
+    assert torch.equal(kv, pv) and torch.equal(kp, pp)
+
+
+def test_chunkmax_scan_cuda_equals_cpu(dev):
+    g = torch.Generator().manual_seed(0)
+    emb, q = _grid(g, (8192, 64), "cpu", torch.bfloat16), _grid(g, (33, 64), "cpu")
+    bias = torch.zeros(8192)
+    bias[8000:] = fs.NEG_INF
+    for k in (1, 24, 100):
+        want = cm.chunkmax_scan_topk(q, emb, bias, k)
+        got = cm.chunkmax_scan_topk(q.to(dev), emb.to(dev), bias.to(dev), k)
+        for w, gt in zip(want, got):
+            assert torch.equal(w, gt.cpu()), k
+
+
+@pytest.mark.parametrize("q,l2", [(16, 64), (1, 64), (128, 192)])
+def test_k3_rescore_equal_plain_on_exact_data(dev, q, l2):
+    g = torch.Generator().manual_seed(q + l2)
+    n, b, f = 3000, 37, 256
+    # each row holds a term once, as a forward index does
+    tids = torch.argsort(torch.rand((n, 400), generator=g), dim=1)[:, :l2].to(torch.int32)
+    tids[torch.rand((n, l2), generator=g) < 0.3] = -1
+    w_real = torch.rand((n, l2), generator=g)  # random weights: bit-equal too (slot order)
+    w = (torch.randint(1, 9, (n, l2), generator=g) / 8.0).float()
+    fused = torch.cat([tids, w.view(torch.int32)], dim=1).to(dev)
+    cand = torch.randint(-1, n, (b, f), generator=g, dtype=torch.int32).to(dev)
+    tq = torch.randint(-1, 400, (b, q), generator=g, dtype=torch.int32).to(dev)
+    iq = torch.where(tq >= 0, (torch.randint(1, 5, (b, q), generator=g) / 4.0).to(dev), 0.0).float()
+    k3 = rs.K3_LAUNCHES
+    ks, kc = rs.rescore_fused(fused, cand, tq, iq)
+    assert rs.K3_LAUNCHES == k3 + 1
+    ps, pc = rs._rescore_fused_plain(fused, cand, tq, iq)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    fused_real = torch.cat([tids, w_real.view(torch.int32)], dim=1).to(dev)
+    iq_real = torch.where(tq >= 0, torch.rand((b, q), generator=g).to(dev) + 0.5, 0.0).float()
+    ks, kc = rs.rescore_fused(fused_real, cand, tq, iq_real)
+    ps, pc = rs._rescore_fused_plain(fused_real, cand, tq, iq_real)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+
+
+@pytest.mark.parametrize("mode", ["any", "count"])
+@pytest.mark.parametrize("n_terms", [1, 16, 40, 100])
+def test_k4_chunked_sel_equal_plain(dev, mode, n_terms):
+    rng = np.random.default_rng(n_terms)
+    n_rows, t = 200_000, 128
+    sizes = rng.integers(1, 4000, t)
+    rows = np.concatenate([np.sort(rng.choice(n_rows, m, replace=False)) for m in sizes]).astype(np.int32)
+    wn = rng.random(len(rows)).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    pk, cb, cc, qb = build_impact_chunks(rows, wn, offsets, rng.random(t) + 0.5, n_rows)
+    pk, cb, cc = (torch.from_numpy(a).to(dev) for a in (pk, cb, cc))
+    tids = torch.from_numpy(np.stack([rng.choice(t, n_terms, replace=False) for _ in range(9)]).astype(np.int32))
+    slots = ck.slots_for_query(n_terms)
+    win = ck.pack_query_chunks(tids.to(dev), cb, cc, slots, int(cc.max()), pk.shape[0] // PK_CHUNK - 1)
+    seg = max(1, int(np.ceil(np.log2(2 * n_terms))))
+    k4 = ck.K4_LAUNCHES
+    kr, kk = ck.chunked_sel(win, pk, qb=qb, seg_log2=seg, mode=mode)
+    assert ck.K4_LAUNCHES == k4 + 1
+    pr, pkeys = ck._chunked_sel_plain(win, pk, qb, seg, mode, 3)
+    assert torch.equal(kk, pkeys) and torch.equal(kr, pr)

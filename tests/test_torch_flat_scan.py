@@ -37,7 +37,7 @@ def _pair(cap, similarity, vecs, tombstoned):
     if tombstoned:
         for r in REMOVED:
             assert jb.remove(r + 100) and tb.remove(r + 100)
-    return jb.snapshot(), tb.snapshot()
+    return jb.snapshot(), tb.snapshot(device="cpu")
 
 
 def _grid(rng, shape):
@@ -141,7 +141,7 @@ def test_flat_vector_engine_matches_jax(rng, tmp_path, monkeypatch):
     # the JAX engine persists executables: keep them out of the suite's shared cache
     monkeypatch.setenv("WAX_TPU_AOT_DIR", str(tmp_path))
 
-    je, te = JaxEngine(D, similarity=Similarity.DOT), FlatVectorEngine(D, similarity=Similarity.DOT)
+    je, te = JaxEngine(D, similarity=Similarity.DOT), FlatVectorEngine(D, similarity=Similarity.DOT, device="cpu")
     q = _grid(rng, (5, D))
     for e in (je, te):  # empty engine: -inf / -1 slots
         v, f = e.search(q, 4)
@@ -180,6 +180,14 @@ def test_euclidean_xla_and_auto(rng):
 
 @pytest.mark.parametrize("backend", ["chunkmax", "pallas_packed"])
 def test_unported_backends_raise(exact_snaps, backend):
+    """pallas_packed (K9) is not ported and raises NotImplementedError; chunkmax (K6 +
+    K7) is ported and raises only where the JAX package's does, on a tombstoned index
+    (tests/test_torch_chunkmax.py holds its results against the JAX package's)."""
+    if backend == "chunkmax":
+        _, ts = exact_snaps[(4096, True)]
+        with pytest.raises(ValueError, match="contiguous"):
+            fs.flat_scan_topk(torch.zeros(2, D), ts, 5, backend=backend)
+        return
     _, ts = exact_snaps[(4096, False)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fs.flat_scan_topk(torch.zeros(2, D), ts, 5, backend=backend)

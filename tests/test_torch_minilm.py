@@ -131,8 +131,8 @@ def test_wordpiece_copy_ids_identical(tmp_path, with_vocab):
 
 def test_embedder_seeded_and_normalised():
     cfg = tm.MiniLMConfig(**SMALL)
-    a = tm.MiniLMEmbedder(cfg=cfg, dtype=torch.float32, seed=3)
-    b = tm.MiniLMEmbedder(cfg=cfg, dtype=torch.float32, seed=3)
+    a = tm.MiniLMEmbedder(cfg=cfg, dtype=torch.float32, seed=3, device="cpu")
+    b = tm.MiniLMEmbedder(cfg=cfg, dtype=torch.float32, seed=3, device="cpu")
     for (na, pa), (nb, pb) in zip(a.model.state_dict().items(), b.model.state_dict().items()):
         assert na == nb and torch.equal(pa, pb)
     out = a.embed_batch(["alpha beta", "gamma", "delta epsilon zeta"])

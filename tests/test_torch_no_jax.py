@@ -44,7 +44,9 @@ def test_port_imports_without_jax():
         "ops.topk", "ops.flat_scan", "ops._build", "ops.bm25", "ops.fusion",
         "index.dense", "index.lex", "search.vector_engines", "search.engine",
         "text.wordpiece", "text.unicode61_tables", "embed.provider", "embed.minilm",
-        "utils.concurrency",
+        "utils.concurrency", "utils.device", "ops.bm25_candidates", "ops.bm25_rescore",
+        "ops.bm25_chunked_pallas", "ops.chunkmax_scan", "ops.ivf_kernel", "parallel.mesh",
+        "parallel.merge", "parallel.sharded_scan", "parallel.sharded_hybrid", "search.unified",
     }
     assert {f"wax_tpu_torch.{m}" for m in expected} <= set(res["mods"])
 

@@ -103,9 +103,9 @@ def served():
         jout[mode] = [np.asarray(x) for x in (vv, vf, bv, bf)]
 
     # --- wax_tpu_torch: the engine the card serves through
-    embedder = tm.MiniLMEmbedder(cfg=tm.MiniLMConfig(**SMALL), dtype=torch.float32)
+    embedder = tm.MiniLMEmbedder(cfg=tm.MiniLMConfig(**SMALL), dtype=torch.float32, device="cpu")
     embedder.model.load_state_dict(tm.params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
-    engine = HybridSearchEngine(embedder)
+    engine = HybridSearchEngine(embedder, device="cpu")
     for fid, text in enumerate(docs):
         engine.index_text(fid, text)
     engine.index_embedding_batch(np.arange(N_DOCS), embedder.embed_batch(docs))
@@ -164,7 +164,7 @@ def test_repeat_serving_identical(served):
 
 
 def test_engine_remove_drops_both_lanes():
-    engine = HybridSearchEngine(None, dim=8)
+    engine = HybridSearchEngine(None, dim=8, device="cpu")
     rng = np.random.default_rng(0)
     engine.index_text(1, "alpha beta")
     engine.index_text(2, "alpha gamma")

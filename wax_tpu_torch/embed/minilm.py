@@ -29,6 +29,7 @@ from torch import nn
 
 from wax_tpu_torch.embed.provider import ExecutionMode
 from wax_tpu_torch.text.wordpiece import WordPieceTokenizer
+from wax_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "MiniLMConfig",
@@ -256,11 +257,11 @@ class MiniLMEmbedder:
         dtype: torch.dtype = torch.bfloat16,
         batch_size: int = 256,
         seed: int = 0,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
         cfg: MiniLMConfig | None = None,
     ):
         self.cfg = cfg if cfg is not None else MiniLMConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = MiniLMEncoder(self.cfg, dtype=dtype)
         if vocab_path is None and checkpoint_dir and (Path(checkpoint_dir) / "vocab.txt").exists():
             vocab_path = Path(checkpoint_dir) / "vocab.txt"

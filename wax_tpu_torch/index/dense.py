@@ -15,6 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from wax_tpu_torch.utils.device import resolve_device
+
 __all__ = ["DenseIndex", "DenseIndexBuilder", "Similarity"]
 
 
@@ -167,11 +169,12 @@ class DenseIndexBuilder:
         return True
 
     def snapshot(
-        self, device: str | torch.device = "cpu", device_dtype: torch.dtype | None = None
+        self, device: str | torch.device | None = None, device_dtype: torch.dtype | None = None
     ) -> DenseIndex:
-        """Copy the current state into an immutable snapshot on `device`, stored as
-        `device_dtype` (None keeps the builder's f32). Every field is a copy, so later
-        builder mutations never reach the snapshot."""
+        """Copy the current state into an immutable snapshot on `device` (None: the
+        current CUDA device), stored as `device_dtype` (None keeps the builder's f32).
+        Every field is a copy, so later builder mutations never reach the snapshot."""
+        device = resolve_device(device)
         emb = torch.tensor(self._emb, device=device)
         if device_dtype is not None and emb.dtype != device_dtype:
             emb = emb.to(device_dtype)

@@ -1,14 +1,20 @@
 """Lexical (BM25) index: CSR postings snapshot and a host-side builder.
 
-PyTorch port of the unbudgeted part of `wax_tpu.index.lex`. `analyze` and the BM25
-constants are copied from the JAX package (its `__init__` imports jax eagerly); the
-builder keeps the same row, vocabulary and tombstone semantics and produces the same
-CSR arrays, built with numpy instead of a per-posting Python loop.
+PyTorch port of `wax_tpu.index.lex`. `analyze`, the BM25 constants,
+`packed_row_bits`, `build_impact_chunks` and `fuse_forward` are copied from the JAX
+package (its `__init__` imports jax eagerly); the builder keeps the same row,
+vocabulary, tombstone and postings-budget semantics and produces the same arrays,
+built with vectorised numpy instead of per-posting and per-document Python loops.
 
-Left out: the TPU-only layout (reversed postings copies, packed impact chunks,
-1024-aligned DMA-window padding), the forward index, and frozen-array persistence. A
-postings budget that would truncate a term raises NotImplementedError: the budgeted
-lane is ROADMAP item 6.
+A postings budget that truncates a term keeps each term's impact head (the postings
+with the largest exact BM25 contribution, ties to the lowest row), scores with idf
+from the full document frequency, and adds the exact-rescore forward index
+(`fwd_tids`, `fwd_wnorm`, fused as `fwd_fused`) and the impact-chunked packed
+postings (`pk_chunks`) that the candidate kernels read.
+
+Left out: the TPU-only layout (reversed postings copies `doc_rows_rev`, `wnorm_rev`,
+`pk_chunks_rev`, and the 1024-aligned DMA-window padding) and frozen-array
+persistence.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from wax_tpu_torch.utils.device import resolve_device
+
 __all__ = [
     "LexIndex",
     "LexIndexBuilder",
@@ -27,7 +35,12 @@ __all__ = [
     "BM25_K1",
     "BM25_B",
     "ANALYZER_VERSION",
+    "FWD_WIDTH_CAP",
+    "PK_CHUNK",
     "auto_postings_floor",
+    "build_impact_chunks",
+    "fuse_forward",
+    "packed_row_bits",
 ]
 
 
@@ -41,6 +54,87 @@ BM25_K1 = 1.2
 BM25_B = 0.75
 # Bump whenever analyze()'s token output changes (kept equal to the JAX package's).
 ANALYZER_VERSION = "u61-r4"
+# Forward-index width cap: documents with more unique terms keep their
+# FWD_WIDTH_CAP highest-impact terms (lowest-tid ties).
+FWD_WIDTH_CAP = 512
+# Postings per impact chunk of the packed candidate layout.
+PK_CHUNK = 1024
+_I32_MAX = np.int32(2**31 - 1)
+
+
+def packed_row_bits(n_cap: int) -> tuple[int, int]:
+    """(row_bits, qb) split of the 31 usable i32 bits of a packed posting
+    `(row << qb) | qcon`: row_bits = bit_length(n_cap) keeps every packed value below
+    INT32_MAX (the pad sentinel); qb is capped at 12 so the candidate kernel's
+    `rank * 128` tie-break key stays within i32."""
+    rb = max(1, int(n_cap).bit_length())
+    qb = min(31 - rb, 12)
+    if qb < 6:
+        raise ValueError(
+            f"capacity {n_cap} leaves only {qb} quantization bits; "
+            "shard the corpus below 2^25 rows per device"
+        )
+    return rb, qb
+
+
+def build_impact_chunks(doc_rows, wnorm, offsets, idf, n_cap):
+    """Impact-chunked packed postings for the chunked candidate kernel (K4).
+
+    Per term t: order its postings by exact contribution idf[t]*wnorm (descending,
+    ties to the lowest row, tombstones last), split into PK_CHUNK-sized impact
+    chunks, sort each chunk by row, and pack every posting as (row << qb) | qcon with
+    qcon = round(con / max_con * (2^qb - 1)) clamped to [1, 2^qb - 1] (0 for
+    tombstones). Chunks are PK_CHUNK-aligned blocks padded with INT32_MAX, plus one
+    all-INT32_MAX block at the end (the target of dead slots).
+
+    Returns (pk [PB*PK_CHUNK] i32, chunk_base [T] i32, chunk_counts [T] i32, qb).
+    """
+    t = len(offsets) - 1
+    p_total = int(offsets[-1])
+    _, qb = packed_row_bits(n_cap)
+    qmax = (1 << qb) - 1
+    sizes = np.diff(offsets.astype(np.int64))
+    nch = ((sizes + PK_CHUNK - 1) // PK_CHUNK).astype(np.int64)
+    chunk_base = np.zeros(t, np.int32)
+    if t:
+        chunk_base[1:] = np.cumsum(nch)[:-1].astype(np.int32)
+    pb_total = int(nch.sum()) + 1
+    pk = np.full(pb_total * PK_CHUNK, _I32_MAX, np.int32)
+    if p_total:
+        rows = doc_rows[:p_total].astype(np.int64)
+        tid_post = np.repeat(np.arange(t, dtype=np.int64), sizes)
+        con = wnorm[:p_total].astype(np.float64) * idf[tid_post]
+        scale = float(con.max())
+        if scale <= 0.0:
+            scale = 1.0
+        qcon = np.clip(np.rint(con / scale * qmax), 1, qmax).astype(np.int64)
+        qcon = np.where(con > 0.0, qcon, 0)
+        p1 = np.lexsort((rows, -con, tid_post))  # impact order within each term
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        chunk_j = (np.arange(p_total, dtype=np.int64) - starts[tid_post[p1]]) // PK_CHUNK
+        gchunk = chunk_base[tid_post[p1]].astype(np.int64) + chunk_j
+        p2 = np.lexsort((rows[p1], gchunk))  # row order within each chunk
+        g_sorted = gchunk[p2]
+        src = p1[p2]
+        first_of_chunk = np.concatenate([[True], g_sorted[1:] != g_sorted[:-1]])
+        chunk_start_pos = np.where(first_of_chunk, np.arange(p_total, dtype=np.int64), 0)
+        chunk_start_pos = np.maximum.accumulate(chunk_start_pos)
+        within = np.arange(p_total, dtype=np.int64) - chunk_start_pos
+        dest = g_sorted * PK_CHUNK + within
+        pk[dest] = ((rows[src] << qb) | qcon[src]).astype(np.int32)
+    return pk, chunk_base, nch.astype(np.int32), qb
+
+
+def fuse_forward(fwd_tids: np.ndarray, fwd_wnorm: np.ndarray, width: int) -> np.ndarray:
+    """The forward index as ONE i32 array [N, 2*L2]: lanes [0, L2) the tids (-1 pad),
+    lanes [L2, 2*L2) the matching f32 weights as bit patterns; L2 = the real width
+    rounded up to 64. The exact rescore (K3) gathers one row per candidate."""
+    n = fwd_tids.shape[0]
+    l2 = max(64, ((max(width, 1) + 63) // 64) * 64)
+    fused = np.empty((n, 2 * l2), np.int32)
+    fused[:, :l2] = fwd_tids[:, :l2]
+    fused[:, l2:] = np.ascontiguousarray(fwd_wnorm[:, :l2].astype(np.float32)).view(np.int32)
+    return fused
 
 
 def _build_tokenizer():
@@ -102,7 +196,17 @@ class LexIndex:
       count:     0-d int32 occupied rows.
       avgdl:     0-d f32 mean document length over live rows.
       wnorm:     [P] f32 tf-normalised weight per posting (0 for tombstoned rows).
-      max_df:    longest postings list, rounded up to 128 (as the JAX package).
+      max_df:    longest (kept) postings list, rounded up to 128 (as the JAX package).
+
+    Present only when the postings budget truncated a term (None / 0 otherwise):
+      fwd_tids / fwd_wnorm: [N_cap, L_pad] doc-major forward index of each live
+                 document's unique terms (tid ascending, -1 / 0.0 padding) with exact
+                 per-(doc, term) weights, from the UNBUDGETED postings.
+      fwd_fused: [N_cap, 2*L2] i32 `fuse_forward` of the two (K3's input).
+      pk_chunks: [PB*PK_CHUNK] i32 impact-chunked packed postings
+                 (`build_impact_chunks`, K4's input); chunk_base / chunk_counts [T].
+      pk_qb, pk_max_chunks, fwd_width: the packed quantisation bits, the most chunks
+                 of one term, and the real forward width.
     """
 
     doc_rows: torch.Tensor
@@ -115,7 +219,16 @@ class LexIndex:
     count: torch.Tensor
     avgdl: torch.Tensor
     wnorm: torch.Tensor
+    fwd_tids: torch.Tensor | None = None
+    fwd_wnorm: torch.Tensor | None = None
+    fwd_fused: torch.Tensor | None = None
+    pk_chunks: torch.Tensor | None = None
+    chunk_base: torch.Tensor | None = None
+    chunk_counts: torch.Tensor | None = None
     max_df: int = 0
+    pk_qb: int = 0
+    pk_max_chunks: int = 0
+    fwd_width: int = 0
 
     @property
     def n_terms(self) -> int:
@@ -143,8 +256,8 @@ class LexIndexBuilder:
 
     def __init__(self, postings_budget: int | str | None = None):
         # None keeps every posting; "auto" resolves per snapshot (exact below 256K
-        # rows); an int caps each term's list. Only budgets that truncate nothing are
-        # served by this port.
+        # rows, then max(4096, n // 256)); an int caps each term's list at its impact
+        # head, and the snapshot then carries the exact-rescore forward index.
         self.postings_budget = postings_budget
         self._vocab: dict[str, int] = {}
         self._df_all: list[int] = []  # postings per term id (tombstoned rows included)
@@ -231,14 +344,10 @@ class LexIndexBuilder:
             return auto_postings_floor(n_rows)
         return b
 
-    def snapshot(self, device: str | torch.device = "cpu") -> LexIndex:
+    def snapshot(self, device: str | torch.device | None = None) -> LexIndex:
+        """Build the snapshot on `device` (None: the current CUDA device)."""
+        device = resolve_device(device)
         n = len(self._doc_len)
-        budget = self.resolve_postings_budget(n)
-        if budget is not None and self.max_term_df() > budget:
-            raise NotImplementedError(
-                f"postings budget {budget} truncates a term (max df {self.max_term_df()}); "
-                "the budgeted BM25 lane is not ported yet: ROADMAP item 6"
-            )
         n_cap = self.row_space()
         t = len(self._vocab)
         active = np.zeros(n_cap, bool)
@@ -252,26 +361,49 @@ class LexIndexBuilder:
         avgdl = float(doc_len[:n][np.asarray(self._active, bool)].sum() / live) if n else 1.0
         avgdl = max(avgdl, 1e-6)
 
+        # the log is in row order (each add appends a new row), so a stable sort by
+        # term gives the CSR order: term-major, rows ascending
         tid = np.asarray(self._post_tid).astype(np.int64)
         rows = np.asarray(self._post_row).astype(np.int64)
-        order = np.lexsort((rows, tid))  # CSR: term-major, rows ascending
-        tid_s = tid[order]
-        doc_rows = rows[order].astype(np.int32)
-        tfs = np.asarray(self._post_tf, np.float32)[order]
+        tf_all = np.asarray(self._post_tf).astype(np.int64)
+        order = np.argsort(tid, kind="stable")
+        tid_s, rows_s, tf_s = tid[order], rows[order], tf_all[order]
         sizes = np.bincount(tid_s, minlength=t) if t else np.zeros(0, np.int64)
-        offsets = np.zeros(max(t, 1) + 1, np.int32)
-        offsets[1 : t + 1] = np.cumsum(sizes, dtype=np.int64).astype(np.int32)
-        # FTS5 idf: ln((N - df + 0.5) / (df + 0.5)) over active rows, clamped to 1e-6
-        df = np.bincount(tid_s, weights=active[doc_rows], minlength=t) if t else np.zeros(1)
+        # FTS5 idf: ln((N - df + 0.5) / (df + 0.5)) over active rows, clamped to 1e-6,
+        # from the FULL document frequency (a budget never changes the statistics)
+        df = np.bincount(tid_s, weights=active[rows_s], minlength=t) if t else np.zeros(1)
         v = np.log((live - df + 0.5) / (df + 0.5))
         idf = np.where(v > 0.0, v, 1e-6).astype(np.float32) if t else np.zeros(1, np.float32)
+
+        budget = self.resolve_postings_budget(n)
+        truncated = budget is not None and t > 0 and int(sizes.max()) > budget
+        kept = (tid_s, rows_s, tf_s)
+        if truncated:
+            kept = self._impact_heads(tid_s, rows_s, tf_s, sizes, budget, avgdl)
+        k_tid, k_rows, k_tf = kept
+        k_sizes = np.bincount(k_tid, minlength=t) if t else np.zeros(0, np.int64)
+        offsets = np.zeros(max(t, 1) + 1, np.int32)
+        offsets[1 : t + 1] = np.cumsum(k_sizes, dtype=np.int64).astype(np.int32)
+        doc_rows = k_rows.astype(np.int32)
+        tfs = k_tf.astype(np.float32)
         pdl = doc_len[doc_rows]
         wn = tfs * (BM25_K1 + 1.0) / (tfs + BM25_K1 * (1.0 - BM25_B + BM25_B * pdl / avgdl))
         wnorm = np.where(active[doc_rows], wn, 0.0).astype(np.float32)
-        max_df = int(sizes.max()) if t else 0
+        max_df = int(k_sizes.max()) if t else 0
 
         def dev(a):
-            return torch.tensor(a, device=device)
+            return None if a is None else torch.tensor(a, device=device)
+
+        fwd_tids = fwd_wnorm = fwd_fused = pk = cbase = ccounts = None
+        pk_qb = pk_maxc = fwd_width = 0
+        if truncated:
+            fwd_tids, fwd_wnorm = self._build_forward(n_cap, rows_s, tid_s, tf_s, avgdl, idf)
+            fwd_width = int((fwd_tids >= 0).sum(axis=1).max()) if fwd_tids.size else 0
+            fwd_fused = fuse_forward(fwd_tids, fwd_wnorm, fwd_width)
+            pk, cbase, ccounts, pk_qb = build_impact_chunks(
+                doc_rows, wnorm, offsets, idf.astype(np.float64), n_cap
+            )
+            pk_maxc = int(ccounts.max()) if len(ccounts) else 0
 
         return LexIndex(
             doc_rows=dev(doc_rows),
@@ -284,5 +416,61 @@ class LexIndexBuilder:
             count=torch.tensor(n, dtype=torch.int32, device=device),
             avgdl=torch.tensor(avgdl, dtype=torch.float32, device=device),
             wnorm=dev(wnorm),
+            fwd_tids=dev(fwd_tids),
+            fwd_wnorm=dev(fwd_wnorm),
+            fwd_fused=dev(fwd_fused),
+            pk_chunks=dev(pk),
+            chunk_base=dev(cbase),
+            chunk_counts=dev(ccounts),
             max_df=_round_up(max(max_df, 1), 128),
+            pk_qb=pk_qb,
+            pk_max_chunks=pk_maxc,
+            fwd_width=fwd_width,
         )
+
+    def _impact(self, rows, tf, avgdl: float) -> np.ndarray:
+        """Exact per-posting tf/length weight in float64 (the JAX builder's Python
+        doubles, operation for operation); -1 for tombstoned rows."""
+        dl = np.asarray(self._doc_len, np.float64)[rows]
+        tf = tf.astype(np.float64)
+        w = tf * (BM25_K1 + 1.0) / (tf + BM25_K1 * (1.0 - BM25_B + BM25_B * dl / avgdl))
+        return np.where(np.asarray(self._active, bool)[rows], w, -1.0)
+
+    def _impact_heads(self, tid_s, rows_s, tf_s, sizes, budget: int, avgdl: float):
+        """Each term's `budget` postings of largest impact (ties to the lowest row),
+        back in CSR order."""
+        imp = self._impact(rows_s, tf_s, avgdl)
+        # stable: within a term, equal impacts keep their ascending-row order
+        o = np.lexsort((-imp, tid_s))
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        rank = np.arange(len(o), dtype=np.int64) - starts[tid_s[o]]
+        keep = np.zeros(len(o), bool)
+        keep[o[rank < budget]] = True
+        return tid_s[keep], rows_s[keep], tf_s[keep]
+
+    def _build_forward(self, n_cap, rows_s, tid_s, tf_s, avgdl, idf):
+        """Doc-major forward index from the UNBUDGETED postings of live rows, each row
+        tid-ascending; rows with more than FWD_WIDTH_CAP unique terms keep their
+        highest-impact terms (ties to the lowest tid)."""
+        live = np.asarray(self._active, bool)[rows_s]
+        r, tid, tf = rows_s[live], tid_s[live], tf_s[live]
+        o = np.lexsort((tid, r))
+        r, tid = r[o], tid[o]
+        wn = self._impact(r, tf[o], avgdl)
+        widths = np.bincount(r, minlength=len(self._doc_len))
+        starts = np.concatenate([[0], np.cumsum(widths)])
+        keep = np.ones(len(r), bool)
+        for row in np.nonzero(widths > FWD_WIDTH_CAP)[0]:
+            seg = np.arange(starts[row], starts[row + 1])
+            rank = np.lexsort((tid[seg], -(wn[seg] * idf[tid[seg]].astype(np.float64))))
+            keep[seg[rank[FWD_WIDTH_CAP:]]] = False
+        r, tid, wn = r[keep], tid[keep], wn[keep]
+        widths = np.minimum(widths, FWD_WIDTH_CAP)
+        l_pad = max(128, _round_up(int(widths.max(initial=1)), 128))
+        starts = np.concatenate([[0], np.cumsum(widths)])
+        pos = np.arange(len(r), dtype=np.int64) - starts[r]
+        fwd_tids = np.full((n_cap, l_pad), -1, np.int32)
+        fwd_wnorm = np.zeros((n_cap, l_pad), np.float32)
+        fwd_tids[r, pos] = tid
+        fwd_wnorm[r, pos] = wn
+        return fwd_tids, fwd_wnorm

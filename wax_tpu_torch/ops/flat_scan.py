@@ -11,7 +11,10 @@ PyTorch port of `wax_tpu.ops.flat_scan`. Backends, as in the JAX package:
                 relative. What "auto" picks at mid N.
   * "blockmax" / "blockmax16": exact chunk-max pruned top-k in plain torch (the
                 second with a bf16 coarse pass and an exact f32 rescore).
-  * "chunkmax" (K6/K7) and "pallas_packed" (K9) are not ported yet and raise.
+  * "chunkmax": kernels K6 (per-128-row chunk maxima) and K7 (exact rescore of the
+                winning chunks), `ops/chunkmax_scan.py`. What "auto" picks at 512K
+                rows and more on a contiguous index.
+  * "pallas_packed" (K9) is not ported yet and raises.
 
 Each kernel wrapper takes its plain torch twin (`_packed_sel_topk_plain`,
 `_scan_topk_plain`) only when its tensors lie on the CPU; for CUDA tensors it
@@ -25,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from wax_tpu_torch.index.dense import DenseIndex, Similarity
+from wax_tpu_torch.ops._build import launch, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk, masked_top_k, stable_top_k
 
 __all__ = [
@@ -98,16 +102,6 @@ def _merge_tiles(vals: torch.Tensor, rows: torch.Tensor, k: int):
     return mv, mi.to(torch.int32)
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for CPU tensors (plain twin), False for CUDA tensors (kernel)."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
-    raise ValueError(f"tensors must all be on the CPU or on one CUDA device, got {kinds}")
-
-
 def _check_kernel_args(q, emb, bias, k: int, tn: int) -> None:
     if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1]:
         raise ValueError(f"need q [B, d] and emb [N, d], got {tuple(q.shape)} and {tuple(emb.shape)}")
@@ -121,16 +115,6 @@ def _check_kernel_args(q, emb, bias, k: int, tn: int) -> None:
         raise ValueError(f"tile width {tn} must be a multiple of 128, <= 2048 and divide N={emb.shape[0]}")
     if not 1 <= k <= min(_KMAX, tn):
         raise ValueError(f"k={k} outside [1, {min(_KMAX, tn)}]")
-
-
-def _launch(fn, q, *args) -> None:
-    with torch.cuda.device(q.device):
-        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        from wax_tpu_torch.ops._build import load_library
-
-        msg = load_library().wax_cuda_error_string(err).decode()
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} ({msg})")
 
 
 # ---------------------------------------------------------------------------------
@@ -161,17 +145,14 @@ def packed_sel_tiles(q, emb, bias, k: int, tn: int) -> torch.Tensor:
     """K1 wrapper: per-tile packed keys [B, N/tn * k] (kernel on CUDA, plain twin on
     the CPU)."""
     global K1_LAUNCHES
-    if _on_cpu(q, emb, bias):
+    if on_cpu(q, emb, bias):
         return _packed_sel_topk_plain(q, emb, bias, k, tn)
     _check_kernel_args(q, emb, bias, k, tn)
-    from wax_tpu_torch.ops._build import load_library
-
-    lib = load_library()
     b, (n, d) = q.shape[0], emb.shape
     out = torch.empty((b, n // tn * k), dtype=torch.int32, device=q.device)
     if b:
-        _launch(lib.wax_k1_packed_sel, q, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16))
+        launch("wax_k1_packed_sel", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
+               out.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16))
         K1_LAUNCHES += 1
     return out
 
@@ -211,18 +192,15 @@ def scan_topk_tiles(q, emb, bias, k: int, tn: int):
     """K2 wrapper: per-tile (vals, rows) [B, N/tn * k] (kernel on CUDA, plain twin on
     the CPU)."""
     global K2_LAUNCHES
-    if _on_cpu(q, emb, bias):
+    if on_cpu(q, emb, bias):
         return _scan_topk_plain(q, emb, bias, k, tn)
     _check_kernel_args(q, emb, bias, k, tn)
-    from wax_tpu_torch.ops._build import load_library
-
-    lib = load_library()
     b, (n, d) = q.shape[0], emb.shape
     vals = torch.empty((b, n // tn * k), dtype=torch.float32, device=q.device)
     rows = torch.empty((b, n // tn * k), dtype=torch.int32, device=q.device)
     if b:
-        _launch(lib.wax_k2_scan_topk, q, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
-                vals.data_ptr(), rows.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16))
+        launch("wax_k2_scan_topk", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
+               vals.data_ptr(), rows.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16))
         K2_LAUNCHES += 1
     return vals, rows
 
@@ -287,8 +265,9 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
       k: top-k.
       backend: "auto" | "xla" | "pallas" / "pallas_exact" (K2, exact) |
         "pallas_packed_sel" (K1; scores compared and returned at 2^-12 relative, ties
-        to the lowest row) | "blockmax" | "blockmax16". "chunkmax" and
-        "pallas_packed" raise NotImplementedError until ported.
+        to the lowest row) | "blockmax" | "blockmax16" | "chunkmax" (K6 + K7, exact;
+        needs capacity % 2048 == 0 and a contiguous index). "pallas_packed" raises
+        NotImplementedError until ported.
 
     Returns:
       (scores [B, k] f32, rows [B, k] int32 row indices into index.emb,
@@ -321,10 +300,10 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
 
     if index.similarity == Similarity.EUCLIDEAN:
         raise ValueError("kernel backends support cosine/dot only")
-    if backend == "chunkmax":
-        raise NotImplementedError(
-            "backend 'chunkmax' (TPU kernels K6/K7) is not ported yet: ROADMAP item 8"
-        )
+    if backend == "chunkmax" and not index.contiguous:
+        # the rescore masks each 128-row chunk with a prefix live count, which only
+        # holds when the live rows form a dense prefix
+        raise ValueError("chunkmax backend requires a contiguous (tombstone-free) index")
     if backend == "pallas_packed":
         raise NotImplementedError(
             "backend 'pallas_packed' (TPU kernel K9) is not ported yet: ROADMAP, "
@@ -338,6 +317,10 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
         vals, rows = _blockmax_topk(q, index.emb, bias, k)
     elif backend == "blockmax16":
         vals, rows = _blockmax16_topk(q, index.emb, bias, k)
+    elif backend == "chunkmax":
+        from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk
+
+        vals, rows = chunkmax_scan_topk(q, index.emb, bias, k)
     elif backend == "pallas_packed_sel":
         vals, rows = _packed_sel_scan_topk(q, index.emb, bias, k, tn)
     elif backend in ("pallas", "pallas_exact"):

@@ -2,8 +2,9 @@
 
 PyTorch port of `wax_tpu.search.engine.HybridSearchEngine`, narrowed to what the
 hybrid query path needs: host-side builders, device snapshots cached per builder
-generation, and query embedding. The frame catalog, structured evidence and the
-sharded lexical lane belong to the orchestrator slice.
+generation (the plain CSR snapshot, and the mesh-sharded one for the sharded BM25
+lane), and query embedding. The frame catalog and structured evidence belong to the
+orchestrator slice.
 """
 from __future__ import annotations
 
@@ -16,32 +17,50 @@ import torch
 from wax_tpu_torch.embed.provider import BatchEmbeddingProvider, EmbeddingProvider
 from wax_tpu_torch.index.dense import Similarity
 from wax_tpu_torch.index.lex import LexIndex, LexIndexBuilder
+from wax_tpu_torch.parallel.mesh import Mesh, data_mesh
+from wax_tpu_torch.parallel.sharded_hybrid import shard_lex_index
 from wax_tpu_torch.search.vector_engines import FlatVectorEngine
+from wax_tpu_torch.utils.device import resolve_device
 
 __all__ = ["HybridSearchEngine"]
 
 
 class HybridSearchEngine:
     """Owns the lexical builder and a flat vector engine whose snapshots live on
-    `device`."""
+    `device` (None: the current CUDA device).
+
+    `lex_postings_budget` caps each term's postings (None exact, "auto" exact below
+    256K rows, or an int); a truncated snapshot carries the exact-rescore forward
+    index. `lex_sharded` sends the BM25 lane to the sharded program over `mesh`
+    (default: the one-device mesh of `device`).
+    """
 
     def __init__(
         self,
         embedder: EmbeddingProvider | BatchEmbeddingProvider | None,
         dim: int | None = None,
         similarity: str = Similarity.COSINE,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
+        lex_sharded: bool = False,
+        mesh: Mesh | None = None,
+        lex_postings_budget: int | str | None = None,
     ):
         if dim is None:
             if embedder is None:
                 raise ValueError("either embedder or dim is required")
             dim = embedder.dimensions
         self.embedder = embedder
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.vector = FlatVectorEngine(dim, similarity=similarity, device=self.device)
-        self.lex = LexIndexBuilder()
+        self.lex = LexIndexBuilder(postings_budget=lex_postings_budget)
         self._lex_snap: LexIndex | None = None
         self._lex_gen = -1
+        self.lex_sharded = lex_sharded
+        self.mesh = mesh
+        if lex_sharded and mesh is None:
+            self.mesh = data_mesh(self.device)
+        self._lex_sharded_snap = None
+        self._lex_sharded_gen = -1
         self.stats = {"lex_snapshots": 0}
         # snapshot builds are read-triggered cache fills; serialize just the build
         self._snap_lock = threading.Lock()
@@ -66,6 +85,15 @@ class HybridSearchEngine:
                 self._lex_gen = self.lex.generation
                 self.stats["lex_snapshots"] += 1
             return self._lex_snap
+
+    def lex_sharded_snapshot(self):
+        """Mesh-sharded CSR snapshot, cached per builder generation."""
+        with self._snap_lock:
+            if self._lex_sharded_snap is None or self._lex_sharded_gen != self.lex.generation:
+                self._lex_sharded_snap = shard_lex_index(self.lex, self.mesh, self.lex.row_space())
+                self._lex_sharded_gen = self.lex.generation
+                self.stats["lex_snapshots"] += 1
+            return self._lex_sharded_snap
 
     def embed_query(self, text: str) -> np.ndarray | None:
         if self.embedder is None:

@@ -18,6 +18,7 @@ import torch
 from wax_tpu_torch.index.dense import DenseIndexBuilder, Similarity
 from wax_tpu_torch.ops.flat_scan import flat_scan_topk
 from wax_tpu_torch.utils.concurrency import FreshLockOnCopyMixin
+from wax_tpu_torch.utils.device import resolve_device
 
 __all__ = ["VectorEngine", "FlatVectorEngine", "MAX_TOP_K", "BF16_AUTO_ROWS"]
 
@@ -52,14 +53,15 @@ class FlatVectorEngine(FreshLockOnCopyMixin):
         dim: int,
         similarity: str = Similarity.COSINE,
         device_dtype="auto",
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ):
         """`device_dtype`: None keeps f32; torch.bfloat16 halves device memory; "auto"
-        is f32 until BF16_AUTO_ROWS rows, then bf16. `device` holds the snapshot."""
+        is f32 until BF16_AUTO_ROWS rows, then bf16. `device` holds the snapshot (None:
+        the current CUDA device)."""
         self._snap_lock = threading.Lock()
         self.builder = DenseIndexBuilder(dim=dim, similarity=similarity)
         self.device_dtype = device_dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._snap = None
         self._snap_gen = -1
         self._snap_dtype = None
