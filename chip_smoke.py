@@ -8,9 +8,10 @@ Phases, each printing lines tagged with its name:
   device    require CUDA, print the card's name and power limit (nvidia-smi), turn TF32 off
   build     compile wax_tpu_torch/csrc/*.cu (nvcc, sm_90a, one process per source) and
             print the seconds and each kernel's registers and spills
-  kernels   hold kernels K1 (packed-key scan) and K2 (exact scan) against their plain
-            torch twins: exact-arithmetic data must agree bit for bit, random unit
-            vectors within the stated tolerances; kernel and plain times (CUDA events)
+  kernels   hold kernels K1 (packed-key scan), K2 (exact scan) and K9 (K1's keys by k-pass
+            max extraction) against their plain torch twins: exact-arithmetic data must
+            agree bit for bit, random unit vectors within the stated tolerances, and K9
+            equal to K1 bit for bit on any data; kernel and plain times (CUDA events)
   kernels2  the same for K6 (chunk maxima) and K7 (bucket rescore) at the 1M-row
             shapes: 1,048,576 x 384 and 1,048,576 x 768 bf16, B = 256
   ingest    102,400 synthetic documents (32 Zipf words each) into a HybridSearchEngine
@@ -31,12 +32,26 @@ Phases, each printing lines tagged with its name:
             candidates, then the exact rescore K3) and host RRF; then again with
             `lex_sharded` (chunked candidates K4, then K3). Checks: repeat serving
             bit-identical, the vector lane against the plain exact scan, both BM25
-            lanes against the port's plain path on a CPU copy
+            lanes against the port's plain path on a CPU copy. Then, in a window of its
+            own, `bm25_candidates_topk_pallas` on the snapshot without its fused
+            forward index: K4, then `rescore_topk(fwd_fused=None)` (K5), equal bit for
+            bit to the fused route (K4, then K3)
   hybrid_1m path (b): `sharded_hybrid_topk` on the one-GPU mesh at the bench's
             hybrid_1m_x384 shape (1,048,576 rows x 384 bf16, B 256, k 10, 16,384
             terms, 16-term queries, budget 3,072, seeds 3/5/7), timed with the term
-            ids perturbed per call; K3 and K4 held against their plain twins on this
-            path's own inputs; the fused ids against the same program on a CPU copy
+            ids perturbed per call; K3, K4 and K5 (narrow and wide forms; and against
+            K3) held against their plain twins on this path's own inputs; the fused ids
+            against the same program on a CPU copy
+  exact_30k path (c): 30,720 documents of the smoke corpus, encoded by the full-width
+            MiniLM, in a HybridSearchEngine with `lex_sharded` and the "auto" budget,
+            which keeps this store exact: its sharded BM25 lane resolves to K8 (the
+            unchunked candidate kernel). 4 batches of 256 queries (`any` x3, `all` x1)
+            through the encoder, the vector lane (K1), the sharded BM25 lane (K8) and
+            host RRF, plus one batch of `flat_scan_topk(backend="pallas_packed")`
+            requests (K9); then `sharded_hybrid_topk` on the same store (blockmax dense
+            lane, K8, on-device RRF), timed with the term ids perturbed per call; K8
+            held against its plain twin at the phase's own inputs, sel 0 and 3, all
+            three modes
 
 Each serving phase sets the launch counts to 0 just before it runs and reads them just
 after; every kernel of its path must have launched. It exits non-zero on any failure,
@@ -64,11 +79,12 @@ N_DOCS, DOC_WORDS, VOCAB_WORDS = 102_400, 32, 8192
 F32_TOL = 1e-5
 TRUNC_REL = 2.0**-12
 N_1M = 1_048_576
+N_30K = 30_720  # the largest store of this corpus that the TPU serves through K8
 # the least time the card could take: bytes over the memory rate, operations over the
 # peak rate of their type (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12}
-KERNEL_IDS = ("K1", "K2", "K3", "K4", "K6", "K7")
+KERNEL_IDS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 
 
 def fail(msg: str) -> None:
@@ -93,19 +109,22 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
 
 
 def launch_counts() -> dict:
-    from wax_tpu_torch.ops import bm25_chunked_pallas, bm25_rescore, chunkmax_scan, flat_scan, ivf_kernel
+    from wax_tpu_torch.ops import (bm25_candidates_pallas, bm25_chunked_pallas, bm25_rescore, chunkmax_scan,
+                                   flat_scan, ivf_kernel)
 
     return {"K1": flat_scan.K1_LAUNCHES, "K2": flat_scan.K2_LAUNCHES, "K3": bm25_rescore.K3_LAUNCHES,
-            "K4": bm25_chunked_pallas.K4_LAUNCHES, "K6": chunkmax_scan.K6_LAUNCHES,
-            "K7": ivf_kernel.K7_LAUNCHES}
+            "K4": bm25_chunked_pallas.K4_LAUNCHES, "K5": bm25_rescore.K5_LAUNCHES,
+            "K6": chunkmax_scan.K6_LAUNCHES, "K7": ivf_kernel.K7_LAUNCHES,
+            "K8": bm25_candidates_pallas.K8_LAUNCHES, "K9": flat_scan.K9_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    from wax_tpu_torch.ops import bm25_chunked_pallas, bm25_rescore, chunkmax_scan, flat_scan, ivf_kernel
+    from wax_tpu_torch.ops import (bm25_candidates_pallas, bm25_chunked_pallas, bm25_rescore, chunkmax_scan,
+                                   flat_scan, ivf_kernel)
 
-    flat_scan.K1_LAUNCHES = flat_scan.K2_LAUNCHES = 0
-    bm25_rescore.K3_LAUNCHES = bm25_chunked_pallas.K4_LAUNCHES = 0
-    chunkmax_scan.K6_LAUNCHES = ivf_kernel.K7_LAUNCHES = 0
+    flat_scan.K1_LAUNCHES = flat_scan.K2_LAUNCHES = flat_scan.K9_LAUNCHES = 0
+    bm25_rescore.K3_LAUNCHES = bm25_rescore.K5_LAUNCHES = bm25_chunked_pallas.K4_LAUNCHES = 0
+    chunkmax_scan.K6_LAUNCHES = ivf_kernel.K7_LAUNCHES = bm25_candidates_pallas.K8_LAUNCHES = 0
 
 
 def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> None:
@@ -130,7 +149,8 @@ def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> None:
         return
     rows.sort(reverse=True)
     names = {"k1_packed_sel": "K1", "k2_scan_topk": "K2", "k3_rescore": "K3", "k4_chunked": "K4",
-             "k6_chunk_maxima": "K6", "k7_bucket": "K7"}
+             "k5_rescore": "K5", "k6_chunk_maxima": "K6", "k7_bucket": "K7", "k8_candidates": "K8",
+             "k9_packed_topk": "K9"}
 
     def short(key):
         for frag, kid in names.items():
@@ -199,24 +219,29 @@ def build_phase() -> None:
 
 
 def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
-    """Run K1 and K2 on one input against their plain twins; record errors/times."""
+    """Run K1, K2 and K9 on one input against their plain twins (and K9 against K1);
+    record errors/times."""
     import torch
 
     from wax_tpu_torch.ops import flat_scan as fs
 
     scores = fs._scores_f32(q, emb) + bias[None, :]  # exact scores for near-tie checks
-    for kern in ("K1", "K2"):
-        if kern == "K1":
+    for kern in ("K1", "K2", "K9"):
+        if kern in ("K1", "K9"):
+            sel_fn = fs.packed_sel_tiles if kern == "K1" else fs.packed_topk_tiles
+
             def run_kernel():
-                return fs.packed_sel_tiles(q, emb, bias, k, tn)
+                return sel_fn(q, emb, bias, k, tn)
 
             def run_plain():
                 return fs._packed_sel_topk_plain(q, emb, bias, k, tn)
 
             got, ref = run_kernel(), run_plain()
+            if kern == "K9":  # the same keys as K1 on any data, selected another way
+                check(torch.equal(got, fs.packed_sel_tiles(q, emb, bias, k, tn)), f"{name}: K9 keys differ from K1's")
             torch.cuda.synchronize()
             if exact:
-                check(torch.equal(got, ref), f"{name}: K1 keys differ from the plain twin")
+                check(torch.equal(got, ref), f"{name}: {kern} keys differ from the plain twin")
             kv, kr = fs._merge_tiles(*fs._decode_packed(got, k, tn), k)
             pv, pr = fs._merge_tiles(*fs._decode_packed(ref, k, tn), k)
         else:
@@ -239,14 +264,14 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
             check(torch.equal(kv, pv) and torch.equal(kr, pr), f"{name}: {kern} top-k differs from the plain twin")
             overlap = 1.0
         else:
-            tol = F32_TOL + (TRUNC_REL * pv.abs() if kern == "K1" else 0.0)
+            tol = F32_TOL + (TRUNC_REL * pv.abs() if kern != "K2" else 0.0)
             check(bool(((kv - pv).abs() <= tol).all()), f"{name}: {kern} scores beyond tolerance (max {err:.3g})")
             hit = 0
             for b in range(kr.shape[0]):
                 a, p = set(kr[b].tolist()), set(pr[b].tolist())
                 hit += len(a & p)
                 kth = float(pv[b, k - 1])
-                slack = F32_TOL + (TRUNC_REL * abs(kth) if kern == "K1" else 0.0)
+                slack = F32_TOL + (TRUNC_REL * abs(kth) if kern != "K2" else 0.0)
                 for row in a ^ p:
                     check(row >= 0 and abs(float(scores[b, row]) - kth) <= slack,
                           f"{name}: {kern} row {row} of query {b} differs and is not a near-tie")
@@ -261,7 +286,7 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
         if name.startswith("slice") and k == FETCH_K and not exact:
             r["ms"], r["plain_ms"] = ms, plain_ms
             (b, d), n = q.shape, emb.shape[0]
-            out_bytes = b * (n // tn) * k * (4 if kern == "K1" else 8)
+            out_bytes = b * (n // tn) * k * (8 if kern == "K2" else 4)
             r["bound_ms"], r["bound_by"] = bound(4 * (b * d + n * d + n) + out_bytes, 2 * b * n * d, "fp32")
             r["library_ms"] = cuda_ms(lambda: torch.matmul(q, emb.t()))
             log("kernels", f"{name} {kern}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
@@ -269,7 +294,7 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
 
 
 def kernel_phase(dev, seed: int, quick: bool = False) -> dict:
-    """K1/K2 against their plain twins over the headline, slice and edge shapes."""
+    """K1, K2 and K9 against their plain twins over the headline, slice and edge shapes."""
     import torch
 
     from wax_tpu_torch.ops.flat_scan import NEG_INF, _pick_tn, normalize_rows
@@ -351,7 +376,9 @@ def make_corpus(seed: int, n_docs: int = N_DOCS):
 # ------------------------------------------------------------------------------ ingest
 
 
-def ingest_phase(dev, docs):
+def ingest_phase(dev, docs, phase: str = "ingest", **engine_kw):
+    """Index `docs` into a HybridSearchEngine(**engine_kw) on the card: BM25 builder on
+    the host, full-width MiniLM (random weights, bf16) in batches of 256."""
     import numpy as np
     import torch
 
@@ -360,8 +387,8 @@ def ingest_phase(dev, docs):
 
     cfg = MiniLMConfig()
     embedder = MiniLMEmbedder(dtype=torch.bfloat16, batch_size=256, seed=0, device=dev)
-    engine = HybridSearchEngine(embedder, device=dev)
-    log("ingest", f"MiniLM vocab={cfg.vocab_size} hidden={cfg.hidden} layers={cfg.layers} "
+    engine = HybridSearchEngine(embedder, device=dev, **engine_kw)
+    log(phase, f"MiniLM vocab={cfg.vocab_size} hidden={cfg.hidden} layers={cfg.layers} "
         f"heads={cfg.heads} intermediate={cfg.intermediate} dtype=bf16 weights=random(seed 0)")
     t0 = time.perf_counter()
     for fid, text in enumerate(docs):
@@ -389,7 +416,7 @@ def ingest_phase(dev, docs):
     torch.cuda.synchronize()
     t_snap = time.perf_counter() - t0
     check(len(engine.vector) == len(docs) and len(engine.lex) == len(docs), "ingest lost documents")
-    log("ingest", f"{len(docs)} docs: host seconds lex={t_lex:.2f} encode(tokenize+forward+builder)={t_enc:.2f} "
+    log(phase, f"{len(docs)} docs: host seconds lex={t_lex:.2f} encode(tokenize+forward+builder)={t_enc:.2f} "
         f"snapshots={t_snap:.2f}; device seconds encoder={device_ms / 1e3:.3f}; "
         f"dense capacity={snap.capacity} dtype={snap.emb.dtype}, lex rows={lex.doc_len.shape[0]} "
         f"terms={lex.n_terms} postings={lex.n_postings} max_df={lex.max_df}")
@@ -656,34 +683,46 @@ def _cpu_copy(obj):
                                        if torch.is_tensor(getattr(obj, f.name))})
 
 
-def serve_1m_batch(engine, texts, qv, mode, timings=None):
-    """Both lanes of one batch through the engine: the vector lane
-    (FlatVectorEngine.search) and the BM25 lane (search.unified._bm25_run)."""
+def serve_engine_batch(engine, texts, qv, mode, timings=None):
+    """Both lanes of one batch through the engine: the query vectors `qv` (encoded
+    from `texts` by the engine's embedder when None), the vector lane
+    (FlatVectorEngine.search) and the BM25 lane (search.unified._bm25_run). Returns
+    (vector vals, vector fids, bm25 vals, bm25 fids, term ids, query vectors)."""
     import torch
 
+    from wax_tpu_torch.ops.flat_scan import normalize_rows
     from wax_tpu_torch.search.unified import _bm25_run
 
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
-    vv, vf = engine.vector.search(qv, FETCH_K)
+    encode = qv is None
+    if encode:
+        qv = normalize_rows(engine.embedder.encode(texts))
     ev[1].record()
+    vv, vf = engine.vector.search(qv, FETCH_K)
+    ev[2].record()
     term_ids = _term_batch(engine, texts, mode)
     bv, bf = _bm25_run(engine, term_ids, FETCH_K, mode)
     bv, bf = bv.cpu().numpy(), bf.cpu().numpy()
-    ev[2].record()
-    ev[2].synchronize()
+    ev[3].record()
+    ev[3].synchronize()
     if timings is not None:
-        timings.setdefault("vector", []).append(ev[0].elapsed_time(ev[1]))
-        timings.setdefault("bm25", []).append(ev[1].elapsed_time(ev[2]))
-    return vv, vf, bv, bf, term_ids
+        if encode:
+            timings.setdefault("embed", []).append(ev[0].elapsed_time(ev[1]))
+        timings.setdefault("vector", []).append(ev[1].elapsed_time(ev[2]))
+        timings.setdefault("bm25", []).append(ev[2].elapsed_time(ev[3]))
+    return vv, vf, bv, bf, term_ids, qv
 
 
 def engine_1m_phase(dev, seed: int) -> dict:
     """Path (a): the engine at 1,048,576 documents; returns this phase's launches."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from wax_tpu_torch.ops.bm25_candidates import bm25_candidates_topk
+    from wax_tpu_torch.ops.bm25_candidates_pallas import bm25_candidates_topk_pallas
     from wax_tpu_torch.ops.flat_scan import flat_scan_topk, normalize_rows
     from wax_tpu_torch.parallel.mesh import data_mesh
     from wax_tpu_torch.parallel.sharded_hybrid import sharded_bm25_topk
@@ -742,7 +781,7 @@ def engine_1m_phase(dev, seed: int) -> dict:
         t0 = time.perf_counter()
         out = []
         for texts, qv, mode in zip(queries, qvs, modes):
-            vv, vf, bv, bf, term_ids = serve_1m_batch(eng, texts, qv, mode, timings)
+            vv, vf, bv, bf, term_ids, _ = serve_engine_batch(eng, texts, qv, mode, timings)
             tf = time.perf_counter()
             fused = fuse(vv, vf, bv, bf)
             timings.setdefault("fusion", []).append((time.perf_counter() - tf) * 1e3)
@@ -762,7 +801,7 @@ def engine_1m_phase(dev, seed: int) -> dict:
     for kern in ("K3", "K4", "K6", "K7"):
         check(launches[kern] > 0, f"engine_1m: {kern} was not launched")
     for label, eng in (("lanes", engine), ("sharded", engine_sh)):
-        device_profile(f"engine_1m {label}", lambda: fuse(*serve_1m_batch(eng, queries[0], qvs[0], "any")[:4]),
+        device_profile(f"engine_1m {label}", lambda: fuse(*serve_engine_batch(eng, queries[0], qvs[0], "any")[:4]),
                        iters=1)
     log("engine_1m", f"launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -770,7 +809,7 @@ def engine_1m_phase(dev, seed: int) -> dict:
     # (i) repeat serving is bit-identical
     for label, eng in (("lanes", engine), ("sharded", engine_sh)):
         for i in (0, 3):
-            again = serve_1m_batch(eng, queries[i], qvs[i], modes[i])
+            again = serve_engine_batch(eng, queries[i], qvs[i], modes[i])
             for a, b, what in zip(again[:4], served[label][i][:4], ("vector vals", "vector ids", "bm25 vals",
                                                                     "bm25 ids")):
                 check(np.array_equal(a, b), f"engine_1m {label} batch {i}: repeat serving changed {what}")
@@ -799,6 +838,24 @@ def engine_1m_phase(dev, seed: int) -> dict:
         f"vector lane vs plain exact scan max_abs_err={err:.3g} overlap={ov:.4f} top-1 source={top1:.3f}; "
         f"BM25 lanes (candidates+K3, sharded K4+K3) equal to the CPU plain path on 64 queries "
         f"(ids equal, scores rtol 1e-6)")
+
+    # (iv) the kernel candidate lane on a snapshot without the fused forward index:
+    # rescore_topk(fwd_fused=None) takes K5, which must equal the fused route (K3)
+    split = dataclasses.replace(lex, fwd_fused=None)
+    tids4 = [torch.from_numpy(served["lanes"][i][4]).to(dev) for i in range(4)]
+    via_k3 = [bm25_candidates_topk_pallas(t, lex, FETCH_K, mode) for t, mode in zip(tids4, modes)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    via_k5 = [bm25_candidates_topk_pallas(t, split, FETCH_K, mode) for t, mode in zip(tids4, modes)]
+    torch.cuda.synchronize()
+    k5_window = launch_counts()
+    check(k5_window["K5"] > 0 and k5_window["K3"] == 0, f"engine_1m: rescore_topk(fwd_fused=None) launched "
+          f"K5 {k5_window['K5']} and K3 {k5_window['K3']} times")
+    for i, (a, b) in enumerate(zip(via_k3, via_k5)):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)), f"engine_1m batch {i}: the K5 route differs from K3's")
+    launches["K5"] = k5_window["K5"]
+    log("engine_1m", f"bm25_candidates_topk_pallas without fwd_fused (K4 + K5) equal to the fused route (K4 + K3) "
+        f"for 4 x 256 queries (scores and ids bit for bit); launches {k5_window}")
     log("engine_1m", f"phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
 
@@ -913,7 +970,33 @@ def _k3_k4_cases(lex, tids, results):
         rs._rescore_fused_plain(fused_exact, rows_sorted, tids_q, idf_exact)
     torch.cuda.synchronize()
     check(torch.equal(es, xs) and torch.equal(ec, xc), "K3 differs from its plain twin on exact-arithmetic data")
+    # K5 on the same candidates, over the two separate forward arrays: both forms against
+    # the plain twin, on the path's weights and on exact-arithmetic ones; the wide form
+    # (every lane) also bit-equal to K3, which reads the same rows fused
+    ft, fw = lex.fwd_tids[0], lex.fwd_wnorm[0]
+    fw_exact = torch.where(ft >= 0, ((ft % 8) + 1).float() / 8.0, 0.0).contiguous()
+    widths = (64, ft.shape[1])
+    for w5 in widths:
+        for weights, idf5, want in ((fw, idf_q, (ks, kc)), (fw_exact, idf_exact, (es, ec))):
+            got, plain = rs.rescore_split(ft, weights, rows_sorted, tids_q, idf5, w5), \
+                rs._rescore_split_plain(ft, weights, rows_sorted, tids_q, idf5, w5)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
+                  f"K5 (width {w5}) differs from its plain twin")
+            if w5 == ft.shape[1]:
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "K5 differs from K3")
     f = rows_sorted.shape[1]
+    # the form exact_rescore takes on this index (narrow: a real width <= 64)
+    w5 = 64 if 0 < lex.fwd_width <= 64 and ft.shape[1] >= 128 and f % 2 == 0 else ft.shape[1]
+    t5 = {w: (cuda_ms(lambda: rs.rescore_split(ft, fw, rows_sorted, tids_q, idf_q, w)),
+              cuda_ms(lambda: rs._rescore_split_plain(ft, fw, rows_sorted, tids_q, idf_q, w))) for w in widths}
+    b5 = {w: bound(b * f * 2 * w * 4 + b * f * 4 + b * q * 8 + b * f * 8, 2 * b * f * w * q, "fp32") for w in widths}
+    results["K5"] = dict(max_abs_err=0.0, ms=t5[w5][0], plain_ms=t5[w5][1], library_ms=None, bound_ms=b5[w5][0],
+                         bound_by=b5[w5][1])
+    log("hybrid_1m", f"K5 [{b} x {f} candidates, L={ft.shape[1]}, fwd_width={lex.fwd_width}, Q={q}] bit-equal to "
+        f"its plain twin in both forms on this path's weights and on exact-arithmetic ones, and (every lane) to K3; "
+        + "; ".join(f"width {w}: {t5[w][0]:.4f} ms, plain {t5[w][1]:.4f} ms, bound {b5[w][0]:.4f} ms ({b5[w][1]})"
+                    for w in widths) + f"; exact_rescore takes width {w5}")
     t4 = (cuda_ms(lambda: ck.chunked_sel(win, pk, qb=lex.pk_qb, seg_log2=seg, mode="any")),
           cuda_ms(lambda: ck._chunked_sel_plain(win, pk, lex.pk_qb, seg, "any", 3)))
     t3 = (cuda_ms(lambda: rs.rescore_fused(fused, rows_sorted, tids_q, idf_q)),
@@ -1019,6 +1102,186 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) 
     return launches
 
 
+# ---------------------------------------------------------------------------- exact_30k
+
+
+def _k8_cases(lex, tids, results):
+    """K8 against its plain twin at this path's inputs (the lane's postings and one
+    serving batch's term ids), sel 0 and 3, every mode, on the path's weights and on
+    exact-arithmetic ones (k/8, idf k/4): bit for bit. Times at sel 0 (what the lane
+    runs on an exact store) and sel 3 (the rescore fetch)."""
+    import torch
+
+    from wax_tpu_torch.ops import bm25_candidates_pallas as k8
+
+    rows, offs, max_df = lex.doc_rows[0], lex.offsets[0], int(lex.max_df)
+    wn, idf = lex.wnorm[0], lex.idf[0]
+    wn_exact = torch.where(wn > 0, ((torch.arange(wn.numel(), device=wn.device) % 8) + 1).float() / 8.0, 0.0)
+    idf_exact = ((torch.arange(idf.numel(), device=idf.device) % 4) + 1).float() / 4.0
+    b, q = tids.shape
+    q2, w2 = 2, k8.dma_window(max_df)
+    while q2 < q:
+        q2 *= 2
+    for data, w, i in (("path", wn, idf), ("exact-arithmetic", wn_exact, idf_exact)):
+        for sel in (0, 3):
+            for mode in ("any", "all", "count"):
+                got = k8.candidate_scores_pallas(tids, rows, w, offs, i, max_df=max_df, mode=mode, sel=sel)
+                want = k8._candidate_scores_plain(tids, rows, w, offs, i, q2, w2, mode, sel)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                      f"K8 ({data} weights, {mode}, sel {sel}) differs from its plain twin")
+                del got, want
+        log("exact_30k", f"K8 [{b} queries x Q2 {q2} x W2 {w2}] bit-equal to its plain twin on the {data} "
+            f"weights, modes any/all/count, sel 0 and 3")
+    _, eff, _, _, _ = k8._slots(tids, offs, idf, q2, w2)
+    n_read = int(eff.sum())
+    t = {}
+    for sel in (0, 3):
+        out_bytes = b * (q2 * w2 if sel == 0 else sel * 1024) * 8
+        t[sel] = (cuda_ms(lambda: k8.candidate_scores_pallas(tids, rows, wn, offs, idf, max_df=max_df, sel=sel)),
+                  cuda_ms(lambda: k8._candidate_scores_plain(tids, rows, wn, offs, idf, q2, w2, "any", sel), iters=5),
+                  bound(n_read * 8 + b * q * 4 + b * q2 * 12 + out_bytes, 2 * n_read, "fp32"))
+        log("exact_30k", f"K8 sel {sel} (`any`): {t[sel][0]:.4f} ms, plain {t[sel][1]:.4f} ms, bound "
+            f"{t[sel][2][0]:.4f} ms ({t[sel][2][1]}: {n_read} postings read, {out_bytes / 1e9:.4f} GB written)")
+    results["K8"] = dict(max_abs_err=0.0, ms=t[0][0], plain_ms=t[0][1], library_ms=None, bound_ms=t[0][2][0],
+                         bound_by=t[0][2][1])
+
+
+def exact_30k_phase(dev, seed: int, results: dict) -> dict:
+    """Path (c): the sharded BM25 lane on an exact-postings store (K8); returns this
+    phase's launches (serving window and fused-program window)."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.ops.bm25_candidates_pallas import dma_window
+    from wax_tpu_torch.ops.flat_scan import flat_scan_topk
+    from wax_tpu_torch.parallel import sharded_hybrid as sh
+    from wax_tpu_torch.parallel.mesh import data_mesh
+    from wax_tpu_torch.parallel.sharded_scan import shard_dense_index
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, docs, queries = make_corpus(seed, N_30K)
+    engine = ingest_phase(dev, docs, "exact_30k", lex_sharded=True, lex_postings_budget="auto")
+    del docs
+    t0 = time.perf_counter()
+    lex = engine.lex_sharded_snapshot()
+    torch.cuda.synchronize()
+    t_snap = time.perf_counter() - t0
+    max_df = int(lex.max_df)
+    check(lex.fwd_tids is None and lex.fwd_fused is None and lex.pk_chunks is None,
+          "exact_30k: the auto budget truncated a term (the snapshot has a forward index)")
+    check(((max_df + 127) // 128) * 128 + 1024 <= 32_768, f"exact_30k: max_df {max_df} is past K8's 16-slot guard")
+    check(sh._resolve_lex_backend(lex, "auto", q2=16) == "candidates_pallas",
+          "exact_30k: `auto` did not resolve the BM25 lane to candidates_pallas (K8)")
+    log("exact_30k", f"sharded snapshot in {t_snap:.2f} s: exact (no forward index), max_df={max_df}, "
+        f"W2={dma_window(max_df)}, `auto` -> candidates_pallas")
+
+    modes = ["any", "any", "any", "all"]
+    timings: dict = {}
+    served = []
+    snap = engine.vector.snapshot()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for texts, mode in zip(queries, modes):
+        vv, vf, bv, bf, term_ids, qv = serve_engine_batch(engine, texts, None, mode, timings)
+        tf = time.perf_counter()
+        fused = fuse(vv, vf, bv, bf)
+        timings.setdefault("fusion", []).append((time.perf_counter() - tf) * 1e3)
+        served.append((vv, vf, bv, bf, term_ids, qv, fused))
+    # the packed-key requests (flat_scan_topk backend="pallas_packed") go to K9
+    k9_vals, _, k9_fids = flat_scan_topk(served[0][5], snap, FETCH_K, backend="pallas_packed")
+    k9_fids = k9_fids.cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for kern in ("K1", "K8", "K9"):
+        check(launches[kern] > 0, f"exact_30k: {kern} was not launched while serving")
+    check(launches["K3"] == 0 and launches["K4"] == 0, f"exact_30k: the exact store launched K3/K4 {launches}")
+    for i, (vv, vf, bv, bf, _, _, fused) in enumerate(served):
+        check(vf.shape == (256, FETCH_K) and bf.shape == (256, FETCH_K), f"exact_30k batch {i}: lane shapes")
+        check(all(len(h) > 0 for h in fused), f"exact_30k batch {i}: a query got no fused hit")
+    med = {k: statistics.median(v) for k, v in timings.items()}
+    hits = [float((bf >= 0).sum(axis=1).mean()) for _, _, _, bf, _, _, _ in served]
+    log("exact_30k", f"serve: 1024 queries (modes {modes}) + 256 packed-key requests in {wall:.3f} s = "
+        f"{1024 / wall:.1f} queries/s; per-batch medians ms: embed={med['embed']:.3f} vector={med['vector']:.3f} "
+        f"bm25 (sharded K8)={med['bm25']:.3f} fusion(host)={med['fusion']:.3f}; mean bm25 hits/query per batch="
+        f"{hits}; launches {launches}")
+    device_profile("exact_30k serve", lambda: fuse(*serve_engine_batch(engine, queries[0], served[0][5], "any")[:4]),
+                   iters=1)
+
+    # (i) repeat serving is bit-identical
+    for i in (0, 3):
+        again = serve_engine_batch(engine, queries[i], served[i][5], modes[i])
+        for a, b, what in zip(again[:4], served[i][:4], ("vector vals", "vector ids", "bm25 vals", "bm25 ids")):
+            check(np.array_equal(a, b), f"exact_30k batch {i}: repeat serving changed {what}")
+    # (ii) the vector lane (K1) against the plain exact scan; K9's requests against K1's
+    pv, _, pf = flat_scan_topk(served[0][5], snap, FETCH_K, backend="xla")
+    pv, pf = pv.cpu().numpy(), pf.cpu().numpy()
+    ov = np.mean([len(set(a) & set(b)) / FETCH_K for a, b in zip(served[0][1], pf)])
+    check(ov >= 0.99, f"exact_30k vector lane overlap with the plain exact scan {ov:.4f} < 0.99")
+    s_vals, _, s_fids = flat_scan_topk(served[0][5], snap, FETCH_K, backend="pallas_packed_sel")
+    check(torch.equal(s_vals, k9_vals) and np.array_equal(s_fids.cpu().numpy(), k9_fids),
+          "exact_30k: the packed-key requests (K9) differ from the vector lane's K1")
+    # (iii) the sharded BM25 lane against the port's plain path on a CPU copy (64 queries)
+    lex_cpu, cpu_mesh = _cpu_copy(lex), data_mesh("cpu")
+    for i in (0, 3):
+        tids = torch.from_numpy(served[i][4][:64])
+        cv, cf = sh.sharded_bm25_topk(tids, lex_cpu, FETCH_K, cpu_mesh, mode=modes[i], backend="candidates_pallas")
+        check(np.array_equal(cf.numpy(), served[i][3][:64]), f"exact_30k batch {i}: BM25 ids differ from the CPU "
+              "plain path")
+        check(np.array_equal(cv.numpy(), served[i][2][:64]), f"exact_30k batch {i}: BM25 scores differ from the "
+              "CPU plain path")
+    log("exact_30k", f"checks: repeat serving bit-identical (an `any` and the `all` batch); vector lane (K1) "
+        f"overlap with the plain exact scan {ov:.4f}; packed-key requests (K9) equal to K1's; sharded BM25 lane "
+        f"(K8) equal to the CPU plain path on 64 queries of an `any` and the `all` batch (ids and scores bit for bit)")
+
+    # the fused program on the same store: dense lane, K8, on-device RRF
+    mesh = data_mesh(dev)
+    dense = shard_dense_index(snap, mesh)
+    q0, tids0 = served[0][5], torch.from_numpy(served[0][4]).to(dev)
+    n_terms, k, iters = int(lex.idf.shape[1]), 10, 20
+
+    def perturbed(i):
+        return torch.where(tids0 >= 0, (tids0 + i) % n_terms, -1)
+
+    fv0, ff0 = sh.sharded_hybrid_topk(q0, tids0, dense, lex, k, mesh)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    ev[0].record()
+    for i in range(iters):
+        sh.sharded_hybrid_topk(q0, perturbed(i), dense, lex, k, mesh)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    fused_launches = launch_counts()
+    check(fused_launches["K8"] > 0, "exact_30k: the fused program did not launch K8")
+    check(fused_launches["K3"] == 0 and fused_launches["K4"] == 0, "exact_30k: the fused program launched K3/K4")
+    per_call = [ev[i].elapsed_time(ev[i + 1]) for i in range(iters)]
+    fmed = statistics.median(per_call)
+    log("exact_30k", f"sharded_hybrid_topk B=256 k={k}: per call median {fmed:.3f} ms (min {min(per_call):.3f}, "
+        f"max {max(per_call):.3f}) over {iters} calls (term ids perturbed per call) = {256 / (fmed / 1e3):.1f} "
+        f"queries/s; launches {fused_launches}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_profile("exact_30k fused", lambda: sh.sharded_hybrid_topk(q0, tids0, dense, lex, k, mesh))
+    nq = 32
+    cv, cf = sh.sharded_hybrid_topk(q0[:nq].cpu(), tids0[:nq].cpu(), _cpu_copy(dense), lex_cpu, k, cpu_mesh,
+                                    lex_backend="candidates_pallas")
+    same = [torch.equal(ff0[i].cpu(), cf[i]) for i in range(nq)]
+    _, gdr = sh._dense_lane(q0[:nq], dense, 20, False, False)
+    _, cdr = sh._dense_lane(q0[:nq].cpu(), _cpu_copy(dense), 20, False, False)
+    for i in range(nq):  # a fused list may differ only through a near-tie of the dense lane
+        check(same[i] or not torch.equal(gdr[i].cpu(), cdr[i]), f"exact_30k: query {i} fused ids differ")
+    check(sum(same) / nq >= 0.9, f"exact_30k: fused ids equal to the plain program for only {sum(same)}/{nq} queries")
+    check(bool(torch.isfinite(fv0).all()) and bool((ff0[:, 0] >= 0).all()), "exact_30k: malformed fused output")
+    log("exact_30k", f"checks: fused ids equal to the plain program on a CPU copy for {sum(same)}/{nq} queries")
+
+    _k8_cases(lex, tids0, results)
+    log("exact_30k", f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    launches["K8"] += fused_launches["K8"]
+    return launches
+
+
 # -------------------------------------------------------------------------------- main
 
 
@@ -1052,16 +1315,23 @@ def main(argv=None) -> int:
     path_a = engine_1m_phase(dev, args.seed)
     torch.cuda.empty_cache()
     path_b = hybrid_1m_phase(dev, results)
+    torch.cuda.empty_cache()
+    path_c = exact_30k_phase(dev, args.seed, results)
     for kern in ("K3", "K4", "K6", "K7"):
         launches[kern] = path_a[kern] + path_b[kern]
+    launches["K5"] = path_a["K5"]
+    launches["K8"], launches["K9"] = path_c["K8"], path_c["K9"]
 
     sources = {
         "K1": ("packed_sel_scan_topk", "flat_scan.cu", "wax_tpu/ops/flat_scan.py:201"),
         "K2": ("scan_topk", "flat_scan.cu", "wax_tpu/ops/flat_scan.py:299"),
         "K3": ("rescore_fused", "bm25_rescore.cu", "wax_tpu/ops/bm25_rescore.py:218"),
         "K4": ("chunked_candidates_sel", "bm25_chunked.cu", "wax_tpu/ops/bm25_chunked_pallas.py:115"),
+        "K5": ("rescore_split", "bm25_rescore.cu", "wax_tpu/ops/bm25_rescore.py:87"),
         "K6": ("chunk_maxima", "chunkmax.cu", "wax_tpu/ops/chunkmax_scan.py:45"),
         "K7": ("bucket_rescore", "ivf_kernel.cu", "wax_tpu/ops/ivf_kernel.py:34"),
+        "K8": ("candidate_scores_pallas", "bm25_candidates.cu", "wax_tpu/ops/bm25_candidates_pallas.py:150"),
+        "K9": ("packed_topk_tiles", "flat_scan.cu", "wax_tpu/ops/flat_scan.py:115"),
     }
     kernels = []
     for kern in KERNEL_IDS:

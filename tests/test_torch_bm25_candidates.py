@@ -136,6 +136,30 @@ def test_exact_rescore_fused_and_plain_equal(snaps, n_terms):
     np.testing.assert_allclose(tv2.numpy(), np.asarray(jv2), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("form", ["narrow", "wide", "wide_odd_f"])
+@pytest.mark.parametrize("n_terms", [1, 4, 16])
+def test_exact_rescore_k5_equals_jax_and_the_fused_route(snaps, form, n_terms):
+    """exact_rescore (K5's plain twin here) against the JAX package's K5 in its narrow
+    form (fwd_width <= 64 packs two candidates per row) and its wide form (width
+    unknown, or an odd candidate count), and bit-equal to the fused route (K3)."""
+    js, ts, tb = snaps[9]
+    assert 0 < ts.fwd_width <= 64
+    tids = _tids(tb, n_terms, seed=40 + n_terms)
+    cand = _cands(tb, ts, seed=n_terms, f=41 if form == "wide_odd_f" else 40)
+    width = 0 if form == "wide" else ts.fwd_width
+    before = tbr.K5_LAUNCHES
+    jv, jc = jbr.exact_rescore(jnp.asarray(tids), jnp.asarray(cand), js.fwd_tids, js.fwd_wnorm, js.idf,
+                               fwd_width=width)
+    tv, tc = tbr.exact_rescore(torch.from_numpy(tids), torch.from_numpy(cand), ts.fwd_tids, ts.fwd_wnorm, ts.idf,
+                               fwd_width=width)
+    assert tbr.K5_LAUNCHES == before
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6, atol=0)
+    fv, fc = tbr.exact_rescore_fused(torch.from_numpy(tids), torch.from_numpy(cand), ts.fwd_fused, ts.idf)
+    assert torch.equal(tv, fv) and torch.equal(tc, fc)
+    assert (tc.numpy() > 0).any()
+
+
 @pytest.mark.parametrize("mode", ["any", "all"])
 @pytest.mark.parametrize("fused", [True, False])
 def test_rescore_topk_equal(snaps, mode, fused):

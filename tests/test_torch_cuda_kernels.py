@@ -1,4 +1,4 @@
-"""Kernels K1-K4, K6 and K7 on the GPU against their plain torch twins (needs a card).
+"""Kernels K1-K9 on the GPU against their plain torch twins (needs a card).
 
 CUDA kernels have no CPU mode, so these tests skip without a CUDA device. They import
 no JAX, so they also run on a machine that has none; run them there with
@@ -13,6 +13,7 @@ import torch
 
 from wax_tpu_torch.index.dense import DenseIndexBuilder, Similarity
 from wax_tpu_torch.index.lex import PK_CHUNK, build_impact_chunks
+from wax_tpu_torch.ops import bm25_candidates_pallas as k8
 from wax_tpu_torch.ops import bm25_chunked_pallas as ck
 from wax_tpu_torch.ops import bm25_rescore as rs
 from wax_tpu_torch.ops import chunkmax_scan as cm
@@ -170,3 +171,101 @@ def test_k4_chunked_sel_equal_plain(dev, mode, n_terms):
     assert ck.K4_LAUNCHES == k4 + 1
     pr, pkeys = ck._chunked_sel_plain(win, pk, qb, seg, mode, 3)
     assert torch.equal(kk, pkeys) and torch.equal(kr, pr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,n,tn", [(13, 10, 4096, 2048), (256, 24, 8192, 2048), (64, 128, 2048, 1024),
+                                      (7, 1, 1536, 512)])
+def test_k9_equals_plain_on_exact_data_and_k1_on_any(dev, dtype, b, k, n, tn):
+    g = torch.Generator().manual_seed(b * 7 + k)
+    q, emb = _grid(g, (b, 96), dev, dtype), _grid(g, (n, 96), dev, dtype)
+    bias = torch.zeros(n, device=dev)
+    bias[torch.randperm(n, generator=g)[: n // 10].to(dev)] = fs.NEG_INF
+    k9 = fs.K9_LAUNCHES
+    got = fs.packed_topk_tiles(q, emb, bias, k, tn)
+    assert fs.K9_LAUNCHES == k9 + 1
+    assert torch.equal(got, fs._packed_sel_topk_plain(q, emb, bias, k, tn))
+    assert torch.equal(got, fs.packed_sel_tiles(q, emb, bias, k, tn))
+    qr = fs.normalize_rows(torch.randn((b, 96), generator=g)).to(dev, dtype).contiguous()
+    er = fs.normalize_rows(torch.randn((n, 96), generator=g)).to(dev, dtype).contiguous()
+    assert torch.equal(fs.packed_topk_tiles(qr, er, bias, k, tn), fs.packed_sel_tiles(qr, er, bias, k, tn))
+
+
+def _split_forward(g, n, l, width):
+    """A forward index of n rows x l lanes holding each term once in its first `width`
+    lanes; weights k/8 > 0."""
+    tids = torch.full((n, l), -1, dtype=torch.int32)
+    tids[:, :width] = torch.argsort(torch.rand((n, 400), generator=g), dim=1)[:, :width].to(torch.int32)
+    tids[:, :width][torch.rand((n, width), generator=g) < 0.3] = -1
+    w = torch.where(tids >= 0, torch.randint(1, 9, (n, l), generator=g) / 8.0, 0.0).float()
+    return tids, w
+
+
+@pytest.mark.parametrize("q,l,width", [(16, 128, 64), (1, 128, 128), (128, 384, 384), (16, 512, 64)])
+def test_k5_rescore_equal_plain_and_k3(dev, q, l, width):
+    g = torch.Generator().manual_seed(q + l + width)
+    n, b, f = 3000, 37, 256
+    tids, w = _split_forward(g, n, l, min(width, 200))
+    cand = torch.randint(-1, n, (b, f), generator=g, dtype=torch.int32).to(dev)
+    tq = torch.randint(-1, 400, (b, q), generator=g, dtype=torch.int32).to(dev)
+    iq = torch.where(tq >= 0, (torch.randint(1, 5, (b, q), generator=g) / 4.0).to(dev), 0.0).float()
+    ft, fw = tids.to(dev), w.to(dev)
+    k5 = rs.K5_LAUNCHES
+    ks, kc = rs.rescore_split(ft, fw, cand, tq, iq, width)
+    assert rs.K5_LAUNCHES == k5 + 1
+    ps, pc = rs._rescore_split_plain(ft, fw, cand, tq, iq, width)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    fused = torch.cat([tids, w.view(torch.int32)], dim=1).to(dev)  # K3's input, same data
+    fs3, fc3 = rs.rescore_fused(fused, cand, tq, iq)
+    assert torch.equal(ks, fs3) and torch.equal(kc, fc3)
+    wr = torch.where(tids >= 0, torch.rand((n, l), generator=g) + 0.01, 0.0).float().to(dev)
+    iqr = torch.where(tq >= 0, torch.rand((b, q), generator=g).to(dev) + 0.5, 0.0).float()
+    (ks, kc), (ps, pc) = rs.rescore_split(ft, wr, cand, tq, iqr, width), \
+        rs._rescore_split_plain(ft, wr, cand, tq, iqr, width)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+
+
+def _postings(rng, n_rows, sizes, exact):
+    rows = np.concatenate([np.sort(rng.choice(n_rows, m, replace=False)) for m in sizes]).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    if exact:  # multiples of 1/8, a tenth 0 (tombstoned rows)
+        wn = (rng.integers(1, 9, len(rows)) / 8.0).astype(np.float32)
+        idf = (rng.integers(1, 5, len(sizes)) / 4.0).astype(np.float32)
+    else:
+        wn = rng.random(len(rows)).astype(np.float32)
+        idf = (rng.random(len(sizes)) + 0.5).astype(np.float32)
+    wn[rng.random(len(rows)) < 0.1] = 0.0
+    return rows, offsets, wn, idf
+
+
+@pytest.mark.parametrize("sel", [0, 3])
+@pytest.mark.parametrize("mode", ["any", "all", "count"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_k8_candidates_equal_plain(dev, exact, mode, sel):
+    """K8 at the auto guard's widest window (W2 32,768 for 16 slots: max_df 31,744),
+    rows over several 8,192-row tiles, a ragged batch with an empty and an all -1
+    query, duplicated ids and tombstoned (weight 0) postings: bit-equal to its twin."""
+    rng = np.random.default_rng(int(exact) * 10 + sel)
+    n_rows, t = 60_000, 40
+    sizes = rng.integers(0, 3000, t)
+    sizes[:3] = (31_744, 20_000, 9)
+    rows, offsets, wn, idf = _postings(rng, n_rows, sizes, exact)
+    tids = rng.integers(0, t, (13, 16)).astype(np.int32)
+    tids[:, :2] = rng.integers(0, 3, (13, 2))
+    tids[rng.random((13, 16)) < 0.2] = -1
+    tids[4] = -1
+    tids[5, 1] = tids[5, 0]
+    tids[6, 3:] = -1
+    args = [torch.from_numpy(a).to(dev) for a in (rows, wn, offsets, idf)]
+    tq = torch.from_numpy(tids).to(dev)
+    assert k8.dma_window(31_744) == 32_768
+    n8 = k8.K8_LAUNCHES
+    got = k8.candidate_scores_pallas(tq, *args, max_df=31_744, mode=mode, sel=sel)
+    assert k8.K8_LAUNCHES == n8 + 1
+    want = k8._candidate_scores_plain(tq, *args, 16, 32_768, mode, sel)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (got[0][4] == -1).all() and ((got[0] >= 0).any() or mode == "all")
+    narrow = k8.candidate_scores_pallas(tq[:, :3].contiguous(), *args, max_df=31_744, mode=mode, sel=sel)
+    for a, b in zip(narrow, k8._candidate_scores_plain(tq[:, :3], *args, 4, 32_768, mode, sel)):
+        assert torch.equal(a, b)

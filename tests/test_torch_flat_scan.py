@@ -87,7 +87,8 @@ def test_exact_data_equal(exact_snaps, cap, b, k):
     js, ts = exact_snaps[(cap, b == 13)]  # the ragged batch runs on the tombstoned index
     q = _grid(np.random.default_rng(cap + b + k), (b, D))
     for jb, tb in (("xla", "xla"), ("pallas", "pallas"), ("blockmax", "blockmax"),
-                   ("blockmax16", "blockmax16"), ("pallas_packed", "pallas_packed_sel")):
+                   ("blockmax16", "blockmax16"), ("pallas_packed", "pallas_packed"),
+                   ("pallas_packed", "pallas_packed_sel")):
         want, got = _run(jax_scan, q, js, k, jb), _run(fs.flat_scan_topk, q, ts, k, tb)
         for w, g in zip(want, got):
             np.testing.assert_array_equal(w, g, err_msg=f"{jb} vs {tb}")
@@ -180,17 +181,29 @@ def test_euclidean_xla_and_auto(rng):
 
 @pytest.mark.parametrize("backend", ["chunkmax", "pallas_packed"])
 def test_unported_backends_raise(exact_snaps, backend):
-    """pallas_packed (K9) is not ported and raises NotImplementedError; chunkmax (K6 +
-    K7) is ported and raises only where the JAX package's does, on a tombstoned index
+    """pallas_packed (K9), once unported and raising, is ported: its results equal the
+    JAX package's pallas_packed on random cosine data, scores truncated alike. chunkmax
+    (K6 + K7) raises only where the JAX package's does, on a tombstoned index
     (tests/test_torch_chunkmax.py holds its results against the JAX package's)."""
     if backend == "chunkmax":
         _, ts = exact_snaps[(4096, True)]
         with pytest.raises(ValueError, match="contiguous"):
             fs.flat_scan_topk(torch.zeros(2, D), ts, 5, backend=backend)
         return
-    _, ts = exact_snaps[(4096, False)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fs.flat_scan_topk(torch.zeros(2, D), ts, 5, backend=backend)
+    rng = np.random.default_rng(6)
+    js, ts = _pair(4096, Similarity.COSINE, rng.standard_normal((3000, D)).astype(np.float32), True)
+    q = np.asarray(fs.normalize_rows(torch.from_numpy(rng.standard_normal((9, D)).astype(np.float32))))
+    before = fs.K9_LAUNCHES
+    jv, jr, jf = _run(jax_scan, q, js, 12, backend)
+    tv, tr, tf = _run(fs.flat_scan_topk, q, ts, 12, backend)
+    assert fs.K9_LAUNCHES == before  # the plain twin ran on the CPU
+    # scores differ in the last f32 bits (summation order); the 2^-12 truncation keeps
+    # them equal unless one straddles a truncation step
+    np.testing.assert_allclose(tv, jv, rtol=2.0**-11, atol=1e-6)
+    assert _overlap(tr, jr) >= 0.99 and _overlap(tf, jf) >= 0.99
+    sel = _run(fs.flat_scan_topk, q, ts, 12, "pallas_packed_sel")
+    for a, b in zip(sel, (tv, tr, tf)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_auto_policy_matches_jax_thresholds(exact_snaps):

@@ -40,8 +40,11 @@ _SIGNATURES = {
     "wax_k2_scan_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wax_k3_rescore_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wax_k4_chunked_sel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wax_k5_rescore_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wax_k6_chunk_maxima": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wax_k7_bucket_rescore": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wax_k8_candidates": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wax_k9_packed_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

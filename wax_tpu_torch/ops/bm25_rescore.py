@@ -10,11 +10,16 @@ list, which no budget truncates.
     gather per candidate. Its wrapper `rescore_fused` launches kernel K3
     (`csrc/bm25_rescore.cu`) on CUDA tensors and runs the plain twin
     `_rescore_fused_plain` on CPU tensors. `K3_LAUNCHES` counts launches.
-  * `exact_rescore`: against separate `fwd_tids` / `fwd_wnorm`, which the TPU served
-    with kernel K5. Only its plain version is ported: on CUDA tensors it raises
-    NotImplementedError naming K5. A truncated snapshot always carries `fwd_fused`,
-    so the serving paths never reach it.
+  * `exact_rescore`: against separate `fwd_tids` / `fwd_wnorm`. Its wrapper
+    `rescore_split` launches kernel K5 (`csrc/bm25_rescore.cu`) on CUDA tensors and
+    runs the plain twin `_rescore_split_plain` on CPU tensors. `K5_LAUNCHES` counts
+    launches. A lane matches only with a weight > 0, as in the TPU kernel. A truncated
+    snapshot always carries `fwd_fused`, so the serving paths take K3; K5 serves
+    `exact_rescore` and `rescore_topk(fwd_fused=None)`.
   * `rescore_topk`: the stable top-k over rescored candidates, ties to the lowest row.
+
+Both kernels add the query slots in slot order, so on the same forward index K5 and
+K3 agree bit for bit.
 """
 from __future__ import annotations
 
@@ -23,11 +28,14 @@ import torch
 from wax_tpu_torch.ops._build import launch, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
-__all__ = ["exact_rescore", "exact_rescore_fused", "rescore_fused", "rescore_topk", "K3_LAUNCHES"]
+__all__ = ["exact_rescore", "exact_rescore_fused", "rescore_fused", "rescore_split", "rescore_topk",
+           "K3_LAUNCHES", "K5_LAUNCHES"]
 
 K3_LAUNCHES = 0
+K5_LAUNCHES = 0
 _QMAX = 128
 _L2MAX = 512  # the forward width cap (FWD_WIDTH_CAP); K3 holds a row in registers
+_NARROW = 64  # K5's narrow form: the first 64 lanes, two candidates per warp
 
 
 def _query_planes(term_ids, idf):
@@ -104,21 +112,55 @@ def exact_rescore_fused(term_ids, cand_rows, fwd_fused, idf):
                          idf_q.contiguous())
 
 
-def exact_rescore(term_ids, cand_rows, fwd_tids, fwd_wnorm, idf, fwd_width: int = 0):
-    """`exact_rescore_fused` against separate forward arrays fwd_tids [N_cap, L] i32
-    and fwd_wnorm [N_cap, L] f32. Plain torch on the CPU only: the TPU kernel K5 that
-    serves it on the device is not ported yet (`fwd_width` only steered K5's lane
-    packing, and is accepted for signature parity)."""
-    if not on_cpu(term_ids, cand_rows, fwd_tids, fwd_wnorm, idf):
-        raise NotImplementedError(
-            "exact_rescore on the GPU needs TPU kernel K5 (_rescore_kernel), which is not "
-            "ported yet: ROADMAP, 'TPU kernels to port', K5"
-        )
-    tids_q, idf_q = _query_planes(term_ids, idf)
+def _rescore_split_plain(fwd_tids, fwd_wnorm, cand_rows, tids_q, idf_q, width: int):
+    """Plain twin of K5: (scores [B, F] f32, counts [B, F] i32), 0 for dead rows."""
     safe = cand_rows.clamp(min=0).long()
-    scores, counts = _match_sums(fwd_tids[safe], fwd_wnorm[safe], tids_q, idf_q)
+    tids, weights = fwd_tids[safe][..., :width], fwd_wnorm[safe][..., :width]
+    scores, counts = _match_sums(torch.where(weights > 0.0, tids, -1), weights, tids_q, idf_q)
     dead = cand_rows < 0
     return torch.where(dead, 0.0, scores), torch.where(dead, 0, counts)
+
+
+def rescore_split(fwd_tids, fwd_wnorm, cand_rows, tids_q, idf_q, width: int):
+    """K5 wrapper: fwd_tids [N, L] i32 and fwd_wnorm [N, L] f32 read over their first
+    `width` lanes (64, the narrow form, or L), cand_rows [B, F] i32 (-1 dead), query
+    slots tids_q [B, Q] i32 (-1 pad) and idf_q [B, Q] f32 -> (scores [B, F] f32,
+    counts [B, F] i32)."""
+    global K5_LAUNCHES
+    if on_cpu(fwd_tids, fwd_wnorm, cand_rows, tids_q, idf_q):
+        return _rescore_split_plain(fwd_tids, fwd_wnorm, cand_rows, tids_q, idf_q, width)
+    for name, t, dt in (("fwd_tids", fwd_tids, torch.int32), ("fwd_wnorm", fwd_wnorm, torch.float32),
+                        ("cand_rows", cand_rows, torch.int32), ("tids_q", tids_q, torch.int32),
+                        ("idf_q", idf_q, torch.float32)):
+        if t.dtype != dt or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D {dt} tensor, got {t.dtype} {tuple(t.shape)}")
+    (b, f), q, l = cand_rows.shape, tids_q.shape[1], fwd_tids.shape[1]
+    if (fwd_wnorm.shape != fwd_tids.shape or l % 32 or l > _L2MAX or width not in (_NARROW, l)
+            or width > l or tids_q.shape != idf_q.shape or tids_q.shape[0] != b or q > _QMAX):
+        raise ValueError(f"bad shapes: fwd_tids {tuple(fwd_tids.shape)}, fwd_wnorm {tuple(fwd_wnorm.shape)}, "
+                         f"width {width}, cand_rows {(b, f)}, tids_q {tuple(tids_q.shape)}, idf_q "
+                         f"{tuple(idf_q.shape)} (L a multiple of 32, L <= {_L2MAX}, width {_NARROW} or L, "
+                         f"Q <= {_QMAX})")
+    scores = torch.empty((b, f), dtype=torch.float32, device=cand_rows.device)
+    counts = torch.empty((b, f), dtype=torch.int32, device=cand_rows.device)
+    if b and f:
+        launch("wax_k5_rescore_split", cand_rows.device, fwd_tids.data_ptr(), fwd_wnorm.data_ptr(),
+               cand_rows.data_ptr(), tids_q.data_ptr(), idf_q.data_ptr(), scores.data_ptr(), counts.data_ptr(),
+               b, f, q, l, width)
+        K5_LAUNCHES += 1
+    return scores, counts
+
+
+def exact_rescore(term_ids, cand_rows, fwd_tids, fwd_wnorm, idf, fwd_width: int = 0):
+    """`exact_rescore_fused` against separate forward arrays fwd_tids [N_cap, L] i32
+    and fwd_wnorm [N_cap, L] f32 (kernel K5). `fwd_width`, the real forward width,
+    selects the narrow form (the first 64 lanes) under the TPU kernel's condition:
+    0 < fwd_width <= 64, L >= 128 and an even F."""
+    tids_q, idf_q = _query_planes(term_ids, idf)
+    l, f = fwd_tids.shape[1], cand_rows.shape[1]
+    narrow = 0 < fwd_width <= _NARROW and l >= 128 and f % 2 == 0
+    return rescore_split(fwd_tids, fwd_wnorm, cand_rows.to(torch.int32).contiguous(), tids_q.contiguous(),
+                         idf_q.contiguous(), _NARROW if narrow else l)
 
 
 def rescore_topk(term_ids, cand_rows, fwd_tids, fwd_wnorm, idf, k: int, mode: str,

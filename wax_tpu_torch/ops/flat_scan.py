@@ -14,11 +14,14 @@ PyTorch port of `wax_tpu.ops.flat_scan`. Backends, as in the JAX package:
   * "chunkmax": kernels K6 (per-128-row chunk maxima) and K7 (exact rescore of the
                 winning chunks), `ops/chunkmax_scan.py`. What "auto" picks at 512K
                 rows and more on a contiguous index.
-  * "pallas_packed" (K9) is not ported yet and raises.
+  * "pallas_packed": kernel K9 (csrc/flat_scan.cu `wax_k9_packed_topk`), K1's packed
+                keys selected by the TPU kernel's own k-pass max extraction over the
+                whole tile. It returns what "pallas_packed_sel" returns.
 
-Each kernel wrapper takes its plain torch twin (`_packed_sel_topk_plain`,
-`_scan_topk_plain`) only when its tensors lie on the CPU; for CUDA tensors it
-launches the kernel or raises. `K1_LAUNCHES` and `K2_LAUNCHES` count launches.
+Each kernel wrapper takes its plain torch twin (`_packed_sel_topk_plain` for K1 and
+K9, `_scan_topk_plain` for K2) only when its tensors lie on the CPU; for CUDA tensors
+it launches the kernel or raises. `K1_LAUNCHES`, `K2_LAUNCHES` and `K9_LAUNCHES` count
+launches.
 
 Masking: tombstones and padding are excluded through an additive bias row (0 for
 live rows, NEG_INF otherwise).
@@ -36,14 +39,17 @@ __all__ = [
     "scan_scores",
     "normalize_rows",
     "packed_sel_tiles",
+    "packed_topk_tiles",
     "scan_topk_tiles",
     "K1_LAUNCHES",
     "K2_LAUNCHES",
+    "K9_LAUNCHES",
 ]
 
-# Launch counters of the two kernels: each wrapper adds one where it launches.
+# Launch counters of the kernels: each wrapper adds one where it launches.
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K9_LAUNCHES = 0
 
 # Corpus tile width: the widest candidate dividing the capacity (the builder keeps
 # capacity a multiple of 512). The packed key's 11 column bits cap it at 2048.
@@ -174,6 +180,33 @@ def _packed_sel_scan_topk(q, emb, bias, k: int, tn: int):
 
 
 # ---------------------------------------------------------------------------------
+# K9: packed-key per-tile top-k by k-pass max extraction
+# ---------------------------------------------------------------------------------
+
+
+def packed_topk_tiles(q, emb, bias, k: int, tn: int) -> torch.Tensor:
+    """K9 wrapper: K1's output, [B, N/tn * k] i32 per-tile packed keys, selected by k
+    rounds of a max over the whole tile (kernel on CUDA, the shared plain twin
+    `_packed_sel_topk_plain` on the CPU)."""
+    global K9_LAUNCHES
+    if on_cpu(q, emb, bias):
+        return _packed_sel_topk_plain(q, emb, bias, k, tn)
+    _check_kernel_args(q, emb, bias, k, tn)
+    b, (n, d) = q.shape[0], emb.shape
+    out = torch.empty((b, n // tn * k), dtype=torch.int32, device=q.device)
+    if b:
+        launch("wax_k9_packed_topk", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
+               out.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16))
+        K9_LAUNCHES += 1
+    return out
+
+
+def _packed_scan_topk(q, emb, bias, k: int, tn: int):
+    svals, gcol = _decode_packed(packed_topk_tiles(q, emb, bias, k, tn), k, tn)
+    return _merge_tiles(svals, gcol, k)
+
+
+# ---------------------------------------------------------------------------------
 # K2: exact per-tile top-k
 # ---------------------------------------------------------------------------------
 
@@ -265,9 +298,9 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
       k: top-k.
       backend: "auto" | "xla" | "pallas" / "pallas_exact" (K2, exact) |
         "pallas_packed_sel" (K1; scores compared and returned at 2^-12 relative, ties
-        to the lowest row) | "blockmax" | "blockmax16" | "chunkmax" (K6 + K7, exact;
-        needs capacity % 2048 == 0 and a contiguous index). "pallas_packed" raises
-        NotImplementedError until ported.
+        to the lowest row) | "pallas_packed" (K9; the same results as
+        "pallas_packed_sel") | "blockmax" | "blockmax16" | "chunkmax" (K6 + K7, exact;
+        needs capacity % 2048 == 0 and a contiguous index).
 
     Returns:
       (scores [B, k] f32, rows [B, k] int32 row indices into index.emb,
@@ -304,11 +337,6 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
         # the rescore masks each 128-row chunk with a prefix live count, which only
         # holds when the live rows form a dense prefix
         raise ValueError("chunkmax backend requires a contiguous (tombstone-free) index")
-    if backend == "pallas_packed":
-        raise NotImplementedError(
-            "backend 'pallas_packed' (TPU kernel K9) is not ported yet: ROADMAP, "
-            "'TPU kernels to port', K9"
-        )
 
     tn = _pick_tn(index.capacity)
     q = queries.to(index.emb.dtype).contiguous()
@@ -323,6 +351,8 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
         vals, rows = chunkmax_scan_topk(q, index.emb, bias, k)
     elif backend == "pallas_packed_sel":
         vals, rows = _packed_sel_scan_topk(q, index.emb, bias, k, tn)
+    elif backend == "pallas_packed":
+        vals, rows = _packed_scan_topk(q, index.emb, bias, k, tn)
     elif backend in ("pallas", "pallas_exact"):
         vals, rows = _pallas_scan_topk(q, index.emb, bias, k, tn)
     else:

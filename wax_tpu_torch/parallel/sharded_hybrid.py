@@ -13,14 +13,15 @@ Lanes and the kernels they run on CUDA tensors:
     contiguous shard, the packed-key select kernel (K1) at `_SELKERNEL_MIN_LOCAL_ROWS`
     or more, else exact blockmax in plain torch;
   * BM25: candidate generation, then the exact forward-index rescore (K3) when the
-    postings budget truncated a term. The generator is the chunked kernel (K4) when
-    the backend is "candidates_pallas" and the snapshot carries impact chunks, or the
-    plain-torch merge harness ("candidates").
+    postings budget truncated a term. With the backend "candidates_pallas" the
+    generator is the chunked kernel (K4) when the snapshot carries impact chunks, else
+    the unchunked candidate kernel (K8: its whole plane on an exact store, its
+    in-kernel top 3 per slot position before a rescore); with "candidates", the
+    plain-torch merge harness.
 
 Left out: the per-term reversed postings copies and DMA-window padding the TPU
-kernels read, the unchunked candidate kernel (K8, not ported: requesting it raises),
-and the scatter lane (its only trigger, a snapshot without precomputed weights, does
-not occur in the port).
+kernels read, and the scatter lane (its only trigger, a snapshot without precomputed
+weights, does not occur in the port).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch
 
 from wax_tpu_torch.index.lex import BM25_B, BM25_K1, LexIndexBuilder, build_impact_chunks, fuse_forward
 from wax_tpu_torch.ops.bm25_candidates import candidate_scores_sorted, wide_topk
+from wax_tpu_torch.ops.bm25_candidates_pallas import candidate_scores_pallas, dma_window
 from wax_tpu_torch.ops.bm25_chunked_pallas import _SEL_LEVELS, chunked_candidates_sel
 from wax_tpu_torch.ops.bm25_rescore import rescore_topk
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk, stable_top_k
@@ -187,14 +189,6 @@ def shard_lex_index(builder: LexIndexBuilder, mesh: Mesh, n_rows_global: int) ->
     )
 
 
-def _dma_window(max_df: int) -> int:
-    """The TPU candidate kernel's per-term window: pow2 >= max_df + 1024."""
-    w = 2048
-    while w < max_df + 1024:
-        w *= 2
-    return w
-
-
 def _resolve_lex_backend(lex: ShardedLexIndex, backend: str, q2: int = 16) -> str:
     """The BM25 lane's implementation. "auto" decides on the device the postings
     live on: CUDA resolves as the TPU does ("candidates_pallas" while the TPU
@@ -207,17 +201,9 @@ def _resolve_lex_backend(lex: ShardedLexIndex, backend: str, q2: int = 16) -> st
     q2_pow2 = 2
     while q2_pow2 < q2:
         q2_pow2 *= 2
-    if q2_pow2 * _dma_window(int(lex.max_df)) > _PALLAS_MAX_PLANE_ELEMS:
+    if q2_pow2 * dma_window(int(lex.max_df)) > _PALLAS_MAX_PLANE_ELEMS:
         return "candidates"
     return "candidates_pallas"
-
-
-def _no_k8():
-    return NotImplementedError(
-        "the unchunked candidate kernel (TPU kernel K8, bm25_candidates_pallas._kernel) is not "
-        "ported yet: ROADMAP, 'TPU kernels to port', K8; use lex_backend='candidates' or a "
-        "budget-truncated snapshot, which carries impact chunks"
-    )
 
 
 def _local_bm25_candidates_topk(tids, doc_rows, wnorm, offsets, idf, kk: int, w: int, mode: str,
@@ -227,21 +213,28 @@ def _local_bm25_candidates_topk(tids, doc_rows, wnorm, offsets, idf, kk: int, w:
 
     With `rescore`, candidates are generated OR-mode ("count"-ranked for AND queries)
     from the budgeted postings and the top-F are rescored exactly against the shard's
-    forward index. `chunked` = (pk, chunk_base, chunk_counts, qb, max_chunks) makes
-    the chunked kernel (K4) generate them."""
+    forward index. With `pallas` the kernels generate them: the chunked kernel (K4)
+    when `chunked` = (pk, chunk_base, chunk_counts, qb, max_chunks) is given, else K8
+    (its in-kernel top 3 per slot position when rescoring, its whole plane
+    otherwise)."""
     gen_mode = ("count" if mode == "all" else "any") if rescore else mode
-    if pallas:
-        if not (rescore and chunked is not None):
-            raise _no_k8()
-        pk, cbase, ccnt, pk_qb, pk_maxc = chunked
-        cand_rows, keys = chunked_candidates_sel(tids, pk, cbase, ccnt, qb=pk_qb, max_chunks=pk_maxc,
-                                                 mode=gen_mode, sel=_SEL_LEVELS)
+    if rescore and pallas:
+        if chunked is not None:
+            pk, cbase, ccnt, pk_qb, pk_maxc = chunked
+            cand_rows, keys = chunked_candidates_sel(tids, pk, cbase, ccnt, qb=pk_qb, max_chunks=pk_maxc,
+                                                     mode=gen_mode, sel=_SEL_LEVELS)
+        else:
+            cand_rows, keys = candidate_scores_pallas(tids, doc_rows, wnorm, offsets, idf, max_df=w,
+                                                      mode=gen_mode, sel=_SEL_LEVELS)
         f = int(min(max(4 * kk, 256), keys.shape[-1]))
         _, cpos = stable_top_k(keys, f)
         crows = torch.gather(cand_rows, 1, cpos)
         return rescore_topk(tids, crows, fwd_tids, fwd_wnorm, idf, kk, mode,
                             fwd_width=fwd_width, fwd_fused=fwd_fused)
-    rows, scores = candidate_scores_sorted(tids, doc_rows, wnorm, offsets, idf, w, gen_mode)
+    if pallas:
+        rows, scores = candidate_scores_pallas(tids, doc_rows, wnorm, offsets, idf, max_df=w, mode=gen_mode)
+    else:
+        rows, scores = candidate_scores_sorted(tids, doc_rows, wnorm, offsets, idf, w, gen_mode)
     if rescore:
         f = int(min(max(4 * kk, 256), scores.shape[-1]))
         cvals, cpos = wide_topk(scores, f, exact=False)
