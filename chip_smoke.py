@@ -8,10 +8,11 @@ Phases, each printing lines tagged with its name:
   device    require CUDA, print the card's name and power limit (nvidia-smi), turn TF32 off
   build     compile wax_tpu_torch/csrc/*.cu (nvcc, sm_90a, one process per source) and
             print the seconds and each kernel's registers and spills
-  kernels   hold kernels K1 (packed-key scan), K2 (exact scan) and K9 (K1's keys by k-pass
-            max extraction) against their plain torch twins: exact-arithmetic data must
-            agree bit for bit, random unit vectors within the stated tolerances, and K9
-            equal to K1 bit for bit on any data; kernel and plain times (CUDA events)
+  kernels   hold kernels K1 (packed-key scan), K2 (exact scan) and K9 (K1's function
+            with 3xTF32 tensor-core scores) against their plain torch twins, and K9
+            against K1: exact-arithmetic data must agree bit for bit, random unit
+            vectors within the stated tolerances (near-ties only, overlap >= 0.999);
+            kernel and plain times (CUDA events), bounds, torch.matmul f32
   kernels2  the same for K6 (chunk maxima) and K7 (bucket rescore) at the 1M-row
             shapes: 1,048,576 x 384 and 1,048,576 x 768 bf16, B = 256
   ingest    102,400 synthetic documents (32 Zipf words each) into a HybridSearchEngine
@@ -83,7 +84,7 @@ N_30K = 30_720  # the largest store of this corpus that the TPU serves through K
 # the least time the card could take: bytes over the memory rate, operations over the
 # peak rate of their type (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12}
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 KERNEL_IDS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 
 
@@ -218,9 +219,34 @@ def build_phase() -> None:
 # ----------------------------------------------------------------------------- kernels
 
 
+def _topk_agree(name, what, kv, kr, pv, pr, scores, k, exact, rel):
+    """Merged top-k (kv, kr) against a reference (pv, pr): equal on exact data; else
+    scores within F32_TOL + rel * |s|, every differing row a near-tie of the reference's
+    k-th score and overlap >= 0.999. Returns (max_abs_err, overlap)."""
+    import torch
+
+    err = float((kv - pv).abs().max())
+    if exact:
+        check(torch.equal(kv, pv) and torch.equal(kr, pr), f"{name}: {what} top-k differs")
+        return err, 1.0
+    check(bool(((kv - pv).abs() <= F32_TOL + rel * pv.abs()).all()), f"{name}: {what} scores beyond tolerance "
+          f"(max {err:.3g})")
+    hit = 0
+    for b in range(kr.shape[0]):
+        a, p = set(kr[b].tolist()), set(pr[b].tolist())
+        hit += len(a & p)
+        kth = float(pv[b, k - 1])
+        for row in a ^ p:
+            check(row >= 0 and abs(float(scores[b, row]) - kth) <= F32_TOL + rel * abs(kth),
+                  f"{name}: {what} row {row} of query {b} differs and is not a near-tie")
+    overlap = hit / kr.numel()
+    check(overlap >= 0.999, f"{name}: {what} top-{k} overlap {overlap:.4f} < 0.999")
+    return err, overlap
+
+
 def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
-    """Run K1, K2 and K9 on one input against their plain twins (and K9 against K1);
-    record errors/times."""
+    """Run K1, K2 and K9 on one input against their plain twins, and K9 against K1
+    (bit for bit on exact data, near-ties only on random data); record errors/times."""
     import torch
 
     from wax_tpu_torch.ops import flat_scan as fs
@@ -237,13 +263,18 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
                 return fs._packed_sel_topk_plain(q, emb, bias, k, tn)
 
             got, ref = run_kernel(), run_plain()
-            if kern == "K9":  # the same keys as K1 on any data, selected another way
-                check(torch.equal(got, fs.packed_sel_tiles(q, emb, bias, k, tn)), f"{name}: K9 keys differ from K1's")
             torch.cuda.synchronize()
             if exact:
                 check(torch.equal(got, ref), f"{name}: {kern} keys differ from the plain twin")
             kv, kr = fs._merge_tiles(*fs._decode_packed(got, k, tn), k)
             pv, pr = fs._merge_tiles(*fs._decode_packed(ref, k, tn), k)
+            if kern == "K9":  # K1's function with 3xTF32 scores: K1's keys up to bucket edges
+                k1 = fs.packed_sel_tiles(q, emb, bias, k, tn)
+                if exact:
+                    check(torch.equal(got, k1), f"{name}: K9 keys differ from K1's on exact data")
+                _, ov1 = _topk_agree(name, "K9 vs K1", kv, kr, *fs._merge_tiles(*fs._decode_packed(k1, k, tn), k),
+                                     scores, k, exact, TRUNC_REL)
+                log("kernels", f"{name} K9 vs K1: overlap={ov1:.4f}")
         else:
             def run_kernel():
                 return fs.scan_topk_tiles(q, emb, bias, k, tn)
@@ -259,24 +290,7 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
                 check(float((gv - rv).abs().max()) <= F32_TOL, f"{name}: K2 tile values beyond {F32_TOL}")
             kv, kr = fs._merge_tiles(gv, gr, k)
             pv, pr = fs._merge_tiles(rv, rr, k)
-        err = float((kv - pv).abs().max())
-        if exact:
-            check(torch.equal(kv, pv) and torch.equal(kr, pr), f"{name}: {kern} top-k differs from the plain twin")
-            overlap = 1.0
-        else:
-            tol = F32_TOL + (TRUNC_REL * pv.abs() if kern != "K2" else 0.0)
-            check(bool(((kv - pv).abs() <= tol).all()), f"{name}: {kern} scores beyond tolerance (max {err:.3g})")
-            hit = 0
-            for b in range(kr.shape[0]):
-                a, p = set(kr[b].tolist()), set(pr[b].tolist())
-                hit += len(a & p)
-                kth = float(pv[b, k - 1])
-                slack = F32_TOL + (TRUNC_REL * abs(kth) if kern != "K2" else 0.0)
-                for row in a ^ p:
-                    check(row >= 0 and abs(float(scores[b, row]) - kth) <= slack,
-                          f"{name}: {kern} row {row} of query {b} differs and is not a near-tie")
-            overlap = hit / kr.numel()
-            check(overlap >= 0.999, f"{name}: {kern} top-{k} overlap {overlap:.4f} < 0.999")
+        err, overlap = _topk_agree(name, kern, kv, kr, pv, pr, scores, k, exact, 0.0 if kern == "K2" else TRUNC_REL)
         ms = cuda_ms(run_kernel) if timed else float("nan")
         plain_ms = cuda_ms(run_plain) if timed else float("nan")
         r = results.setdefault(kern, {"max_abs_err": 0.0})
@@ -287,9 +301,16 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
             r["ms"], r["plain_ms"] = ms, plain_ms
             (b, d), n = q.shape, emb.shape[0]
             out_bytes = b * (n // tn) * k * (8 if kern == "K2" else 4)
-            r["bound_ms"], r["bound_by"] = bound(4 * (b * d + n * d + n) + out_bytes, 2 * b * n * d, "fp32")
+            nbytes, flops = 4 * (b * d + n * d + n) + out_bytes, 2 * b * n * d
+            if kern == "K9":  # three TF32 products per f32 product on the tensor cores
+                fma_ms, _ = bound(nbytes, flops, "fp32")
+                r["bound_ms"], r["bound_by"] = bound(nbytes, 3 * flops, "tf32")
+                basis = f"3xTF32 at {PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s; FP32 FMA basis {fma_ms:.4f} ms"
+            else:
+                r["bound_ms"], r["bound_by"] = bound(nbytes, flops, "fp32")
+                basis = f"FP32 FMA at {PEAK_OPS_PER_S['fp32'] / 1e12:.0f} TFLOP/s"
             r["library_ms"] = cuda_ms(lambda: torch.matmul(q, emb.t()))
-            log("kernels", f"{name} {kern}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            log("kernels", f"{name} {kern}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {basis}), "
                 f"library (torch.matmul f32) {r['library_ms']:.4f} ms")
 
 
@@ -1154,7 +1175,7 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     import torch
 
     from wax_tpu_torch.ops.bm25_candidates_pallas import dma_window
-    from wax_tpu_torch.ops.flat_scan import flat_scan_topk
+    from wax_tpu_torch.ops.flat_scan import flat_scan_topk, scan_scores
     from wax_tpu_torch.parallel import sharded_hybrid as sh
     from wax_tpu_torch.parallel.mesh import data_mesh
     from wax_tpu_torch.parallel.sharded_scan import shard_dense_index
@@ -1191,8 +1212,8 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
         timings.setdefault("fusion", []).append((time.perf_counter() - tf) * 1e3)
         served.append((vv, vf, bv, bf, term_ids, qv, fused))
     # the packed-key requests (flat_scan_topk backend="pallas_packed") go to K9
-    k9_vals, _, k9_fids = flat_scan_topk(served[0][5], snap, FETCH_K, backend="pallas_packed")
-    k9_fids = k9_fids.cpu().numpy()
+    k9_vals, k9_rows, _ = flat_scan_topk(served[0][5], snap, FETCH_K, backend="pallas_packed")
+    k9_rows = k9_rows.cpu()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -1221,9 +1242,11 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     pv, pf = pv.cpu().numpy(), pf.cpu().numpy()
     ov = np.mean([len(set(a) & set(b)) / FETCH_K for a, b in zip(served[0][1], pf)])
     check(ov >= 0.99, f"exact_30k vector lane overlap with the plain exact scan {ov:.4f} < 0.99")
-    s_vals, _, s_fids = flat_scan_topk(served[0][5], snap, FETCH_K, backend="pallas_packed_sel")
-    check(torch.equal(s_vals, k9_vals) and np.array_equal(s_fids.cpu().numpy(), k9_fids),
-          "exact_30k: the packed-key requests (K9) differ from the vector lane's K1")
+    # K9 computes K1's keys with 3xTF32 scores: equal ids up to near-ties of the k-th
+    s_vals, s_rows, _ = flat_scan_topk(served[0][5], snap, FETCH_K, backend="pallas_packed_sel")
+    exact_scores = scan_scores(served[0][5], snap).cpu()
+    _, k9_overlap = _topk_agree("exact_30k", "the packed-key requests (K9) vs the vector lane's K1", k9_vals.cpu(),
+                                k9_rows, s_vals.cpu(), s_rows.cpu(), exact_scores, FETCH_K, False, TRUNC_REL)
     # (iii) the sharded BM25 lane against the port's plain path on a CPU copy (64 queries)
     lex_cpu, cpu_mesh = _cpu_copy(lex), data_mesh("cpu")
     for i in (0, 3):
@@ -1234,7 +1257,8 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
         check(np.array_equal(cv.numpy(), served[i][2][:64]), f"exact_30k batch {i}: BM25 scores differ from the "
               "CPU plain path")
     log("exact_30k", f"checks: repeat serving bit-identical (an `any` and the `all` batch); vector lane (K1) "
-        f"overlap with the plain exact scan {ov:.4f}; packed-key requests (K9) equal to K1's; sharded BM25 lane "
+        f"overlap with the plain exact scan {ov:.4f}; packed-key requests (K9) overlap with K1's {k9_overlap:.4f} "
+        f"(every difference a near-tie); sharded BM25 lane "
         f"(K8) equal to the CPU plain path on 64 queries of an `any` and the `all` batch (ids and scores bit for bit)")
 
     # the fused program on the same store: dense lane, K8, on-device RRF
@@ -1331,7 +1355,7 @@ def main(argv=None) -> int:
         "K6": ("chunk_maxima", "chunkmax.cu", "wax_tpu/ops/chunkmax_scan.py:45"),
         "K7": ("bucket_rescore", "ivf_kernel.cu", "wax_tpu/ops/ivf_kernel.py:34"),
         "K8": ("candidate_scores_pallas", "bm25_candidates.cu", "wax_tpu/ops/bm25_candidates_pallas.py:150"),
-        "K9": ("packed_topk_tiles", "flat_scan.cu", "wax_tpu/ops/flat_scan.py:115"),
+        "K9": ("packed_topk_tiles", "packed_topk.cu", "wax_tpu/ops/flat_scan.py:115"),
     }
     kernels = []
     for kern in KERNEL_IDS:

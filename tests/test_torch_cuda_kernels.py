@@ -49,6 +49,18 @@ def test_kernels_equal_plain_on_exact_data(dev, dtype, b, k, n, tn):
     assert torch.equal(kv, pv) and torch.equal(kr, pr)
 
 
+def test_k9_unaligned_views_launch(dev):
+    """Rows whose base is not 16-byte aligned take the ordinary-load stage fill."""
+    g = torch.Generator().manual_seed(5)
+    q = _grid(g, (33, 97), dev)[:, 1:].contiguous()
+    emb_all = _grid(g, (2048 * 96 + 1,), dev)
+    emb = emb_all[1:].view(2048, 96)  # contiguous, 4 bytes past a 16-byte boundary
+    assert emb.is_contiguous() and emb.data_ptr() % 16 == 4
+    bias = torch.zeros(2048, device=dev)
+    got = fs.packed_topk_tiles(q, emb, bias, 10, 1024)
+    assert torch.equal(got, fs._packed_sel_topk_plain(q, emb, bias, 10, 1024))
+
+
 def test_launch_counters_count_kernel_launches_only(dev):
     q, emb, bias = torch.zeros(4, 32, device=dev), torch.zeros(1024, 32, device=dev), torch.zeros(1024, device=dev)
     k1, k2 = fs.K1_LAUNCHES, fs.K2_LAUNCHES
@@ -173,12 +185,32 @@ def test_k4_chunked_sel_equal_plain(dev, mode, n_terms):
     assert torch.equal(kk, pkeys) and torch.equal(kr, pr)
 
 
+def _assert_packed_near(got, ref, scores, k, tn, what):
+    """Merged top-k of two packed-key outputs: decoded scores within 1e-5 + 2^-12 |s|,
+    every differing row a near-tie of the k-th exact score, overlap >= 0.999."""
+    (gv, gr), (rv, rr) = (fs._merge_tiles(*fs._decode_packed(x, k, tn), k) for x in (got, ref))
+    assert bool(((gv - rv).abs() <= 1e-5 + 2.0**-12 * rv.abs()).all()), what
+    hit = 0
+    for b in range(gr.shape[0]):
+        a, p = set(gr[b].tolist()), set(rr[b].tolist())
+        hit += len(a & p)
+        kth = float(rv[b, k - 1])
+        for row in a ^ p:
+            assert row >= 0 and abs(float(scores[b, row]) - kth) <= 1e-5 + 2.0**-12 * abs(kth), (what, b, row)
+    assert hit / gr.numel() >= 0.999, what
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,k,n,tn", [(13, 10, 4096, 2048), (256, 24, 8192, 2048), (64, 128, 2048, 1024),
-                                      (7, 1, 1536, 512)])
-def test_k9_equals_plain_on_exact_data_and_k1_on_any(dev, dtype, b, k, n, tn):
-    g = torch.Generator().manual_seed(b * 7 + k)
-    q, emb = _grid(g, (b, 96), dev, dtype), _grid(g, (n, 96), dev, dtype)
+@pytest.mark.parametrize("b,k,n,tn,d", [(13, 10, 4096, 2048, 96), (256, 24, 8192, 2048, 96),
+                                        (64, 128, 2048, 1024, 96), (7, 1, 1536, 512, 96),
+                                        (13, 10, 4096, 2048, 37), (200, 24, 8192, 2048, 37),
+                                        (13, 128, 2048, 1024, 384), (200, 24, 8192, 2048, 384)])
+def test_k9_equals_plain_on_exact_data_and_k1_on_any(dev, dtype, b, k, n, tn, d):
+    """K9's tensor-core scores are exact on the 1/8 grid, so its keys equal the plain
+    twin's and K1's bit for bit there; on random unit vectors its 3xTF32 scores sit
+    within ~1e-6 of the f32 sums, so its keys may differ only at a 2^-12 bucket edge."""
+    g = torch.Generator().manual_seed(b * 7 + k + d)
+    q, emb = _grid(g, (b, d), dev, dtype), _grid(g, (n, d), dev, dtype)
     bias = torch.zeros(n, device=dev)
     bias[torch.randperm(n, generator=g)[: n // 10].to(dev)] = fs.NEG_INF
     k9 = fs.K9_LAUNCHES
@@ -186,9 +218,12 @@ def test_k9_equals_plain_on_exact_data_and_k1_on_any(dev, dtype, b, k, n, tn):
     assert fs.K9_LAUNCHES == k9 + 1
     assert torch.equal(got, fs._packed_sel_topk_plain(q, emb, bias, k, tn))
     assert torch.equal(got, fs.packed_sel_tiles(q, emb, bias, k, tn))
-    qr = fs.normalize_rows(torch.randn((b, 96), generator=g)).to(dev, dtype).contiguous()
-    er = fs.normalize_rows(torch.randn((n, 96), generator=g)).to(dev, dtype).contiguous()
-    assert torch.equal(fs.packed_topk_tiles(qr, er, bias, k, tn), fs.packed_sel_tiles(qr, er, bias, k, tn))
+    qr = fs.normalize_rows(torch.randn((b, d), generator=g)).to(dev, dtype).contiguous()
+    er = fs.normalize_rows(torch.randn((n, d), generator=g)).to(dev, dtype).contiguous()
+    got = fs.packed_topk_tiles(qr, er, bias, k, tn)
+    scores = fs._scores_f32(qr, er) + bias[None, :]
+    _assert_packed_near(got, fs._packed_sel_topk_plain(qr, er, bias, k, tn), scores, k, tn, "K9 vs plain")
+    _assert_packed_near(got, fs.packed_sel_tiles(qr, er, bias, k, tn), scores, k, tn, "K9 vs K1")
 
 
 def _split_forward(g, n, l, width):

@@ -1,4 +1,4 @@
-// Fused dense scan + per-tile top-k for Hopper (sm_90a): kernels K1, K2 and K9.
+// Fused dense scan + per-tile top-k for Hopper (sm_90a): kernels K1 and K2.
 //
 // K1 `wax_k1_packed_sel` replaces the TPU kernel wax_tpu/ops/flat_scan.py
 //    `_packed_sel_kernel` (entry `_packed_sel_scan_topk`): for every query row and
@@ -11,12 +11,8 @@
 // K2 `wax_k2_scan_topk` replaces wax_tpu/ops/flat_scan.py `_scan_topk_kernel`
 //    (entry `_pallas_scan_topk`): per tile, the k best by (f32 score desc, column
 //    asc), returned as f32 values and global row ids.
-// K9 `wax_k9_packed_topk` replaces wax_tpu/ops/flat_scan.py `_packed_topk_kernel`
-//    (entry `_packed_scan_topk`): K1's keys, selected as the TPU selects them, by k
-//    rounds of a max over the full tile row that each remove the winner. It returns
-//    what K1 returns, bit for bit; its design is at `k9_packed_topk` below. What
-//    bounds it is K1's arithmetic; its smaller query block (16) reads the corpus
-//    four times as often as K1's, from L2 when the query blocks of a tile run together.
+// K9, K1's function on tensor cores, is in packed_topk.cu; the packed key and the
+// sorted lists are shared through flat_scan_keys.cuh.
 //
 // K1 and K2 share one body. A CTA of 256 threads owns a (64-query block x TN-row
 // corpus tile) pair and nothing is carried between CTAs; the wrapper merges the
@@ -40,6 +36,8 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include "flat_scan_keys.cuh"
+
 namespace {
 
 constexpr int QB = 64;          // queries per CTA
@@ -49,21 +47,9 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int Q_PER_WARP = QB / WARPS;
 constexpr int SC_LD = CH + 1;   // padded score row (bank spread)
-constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// K1: the TPU backend's packed i32 key.
-struct PackedKey {
-  using T = int;
-  static __device__ __forceinline__ T sentinel() { return INT_MIN; }
-  static __device__ __forceinline__ T make(float s, int col) {
-    int bits = __float_as_int(s);
-    int key = bits >= 0 ? bits : ((~bits) ^ INT_MIN);
-    return (key & ~0x7FF) | (0x7FF - col);
-  }
-};
 
 // K2: exact (score desc, column asc) order as one u64 key.
 struct ExactKey {
@@ -83,30 +69,6 @@ struct ExactKey {
     return (int)(0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFull));
   }
 };
-
-// Insert x into the warp's descending list L[0..K) (x beats L[K-1]).
-template <typename KT>
-__device__ __forceinline__ void list_insert(KT* L, int K, KT x, int lane) {
-  int p = 0;
-  for (int base = 0; base < K; base += 32) {
-    int i = base + lane;
-    p += __popc(__ballot_sync(FULL, i < K && L[i] > x));
-  }
-  KT v[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    int i = t * 32 + lane;
-    if (i > p && i < K) v[t] = L[i - 1];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    int i = t * 32 + lane;
-    if (i > p && i < K) L[i] = v[t];
-  }
-  if (lane == 0) L[p] = x;
-  __syncwarp();
-}
 
 size_t smem_bytes(int KP, size_t key_bytes) {
   return (size_t)QB * KP * key_bytes + sizeof(float) * ((size_t)DK * QB + (size_t)DK * CH + (size_t)QB * SC_LD);
@@ -182,22 +144,8 @@ __device__ void scan_tile(const T* __restrict__ q, const T* __restrict__ emb,
     }
     __syncthreads();
 
-    for (int qi = 0; qi < Q_PER_WARP; ++qi) {
-      const int r = warp * Q_PER_WARP + qi;
-      if (q0 + r >= B) break;  // warp-uniform
-      KT* L = lists + (size_t)r * KP;
-      for (int cc = 0; cc < CH; cc += 32) {
-        const int col = cc + lane;
-        const KT key = Key::make(sc[r * SC_LD + col], c0 + col);
-        unsigned m = __ballot_sync(FULL, key > L[K - 1]);
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const KT x = __shfl_sync(FULL, key, src);
-          if (x > L[K - 1]) list_insert(L, K, x, lane);
-        }
-      }
-    }
+    const int r0 = warp * Q_PER_WARP;  // this warp's queries, warp-uniform
+    select_rows<Key>(sc, SC_LD, CH, lists, KP, K, r0, max(0, min(Q_PER_WARP, B - q0 - r0)), c0, lane);
     __syncthreads();
   }
 }
@@ -232,89 +180,6 @@ k2_scan_topk(const T* __restrict__ q, const T* __restrict__ emb, const float* __
       const size_t o = (size_t)(q0 + r) * NN * K + (size_t)tile * K + j;
       vals[o] = ExactKey::value(key);
       idx[o] = tile * TN + ExactKey::column(key);
-    }
-  }
-}
-
-// K9: the TPU's own selection over K1's keys. A CTA owns 16 queries x one TN-row tile,
-// computes the tile's scores in 128-row chunks with K1's arithmetic (the same FMA
-// sequence per score, so the keys are K1's bit for bit), keeps all 16 x TN packed keys
-// in shared memory (132 KB at TN 2048), and then runs k rounds per query of a max over
-// the whole key row, each removing its winner: one warp per query, a strided pass and
-// a warp max-reduce per round.
-constexpr int QB9 = 16;
-constexpr int KEY_PAD = 16;  // rows of the key block start 16 banks apart
-
-size_t k9_smem_bytes(int TN) {
-  return sizeof(int) * (size_t)QB9 * (TN + KEY_PAD) + sizeof(float) * ((size_t)DK * QB9 + (size_t)DK * CH);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-k9_packed_topk(const T* __restrict__ q, const T* __restrict__ emb, const float* __restrict__ bias,
-               int32_t* __restrict__ out, int B, int D, int TN, int K, int NN) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int TNP = TN + KEY_PAD;
-  int* keys = reinterpret_cast<int*>(smem);                // [QB9][TNP]
-  float* qs = reinterpret_cast<float*>(keys + QB9 * TNP);  // [DK][QB9]
-  float* es = qs + DK * QB9;                               // [DK][CH]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;  // query ty, columns tx + 16 * j
-  const int q0 = blockIdx.x * QB9, tile = blockIdx.y;
-  const size_t row0 = (size_t)tile * TN;
-
-  for (int c0 = 0; c0 < TN; c0 += CH) {
-    float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += DK) {
-      {  // queries: 16 x 16, one per thread; ragged edge -> 0
-        const int r = tid >> 4, dd = tid & 15, gq = q0 + r, gd = d0 + dd;
-        qs[dd * QB9 + r] = (gq < B && gd < D) ? to_f32(q[(size_t)gq * D + gd]) : 0.f;
-      }
-      {  // corpus: 128 x 16, eight consecutive depths per thread (as K1)
-        const int r = tid >> 1, dd = (tid & 1) * 8;
-        const size_t grow = row0 + c0 + r;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int gd = d0 + dd + j;
-          es[(dd + j) * CH + r] = gd < D ? to_f32(emb[grow * D + gd]) : 0.f;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) {
-        const float qv = qs[kk * QB9 + ty];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = fmaf(qv, es[kk * CH + tx + 16 * j], acc[j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + tx + 16 * j;
-      keys[ty * TNP + col] = PackedKey::make(acc[j] + bias[row0 + col], col);
-    }
-  }
-  __syncthreads();
-
-  for (int qi = 0; qi < QB9 / WARPS; ++qi) {
-    const int r = warp * (QB9 / WARPS) + qi;
-    if (q0 + r >= B) break;  // warp-uniform
-    int* row = keys + r * TNP;
-    for (int t = 0; t < K; ++t) {
-      int best = INT_MIN, at = -1;
-      for (int i = lane; i < TN; i += 32) {
-        const int v = row[i];
-        if (v > best) {
-          best = v;
-          at = i;
-        }
-      }
-      const int m = __reduce_max_sync(FULL, best);
-      if (at >= 0 && best == m) row[at] = INT_MIN;  // keys are unique within a row
-      if (lane == 0) out[(size_t)(q0 + r) * NN * K + (size_t)tile * K + t] = m;
-      __syncwarp();
     }
   }
 }
@@ -367,25 +232,6 @@ int wax_k2_scan_topk(const void* q, const void* emb, const float* bias, float* v
     if ((err = launch_prep(k2_scan_topk<float>, smem))) return err;
     k2_scan_topk<float><<<grid, THREADS, smem, stream>>>(
         (const float*)q, (const float*)emb, bias, vals, idx, B, D, TN, K, KP, NN);
-  }
-  return (int)cudaGetLastError();
-}
-
-// As K1; TN additionally <= 2048 (the key block lives in shared memory).
-int wax_k9_packed_topk(const void* q, const void* emb, const float* bias, int32_t* out, int B, int N,
-                       int D, int TN, int K, int is_bf16, cudaStream_t stream) {
-  const int NN = N / TN;
-  const dim3 grid((B + QB9 - 1) / QB9, NN);  // the query blocks of one tile run side by side
-  const size_t smem = k9_smem_bytes(TN);
-  int err;
-  if (is_bf16) {
-    if ((err = launch_prep(k9_packed_topk<__nv_bfloat16>, smem))) return err;
-    k9_packed_topk<__nv_bfloat16><<<grid, THREADS, smem, stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)emb, bias, out, B, D, TN, K, NN);
-  } else {
-    if ((err = launch_prep(k9_packed_topk<float>, smem))) return err;
-    k9_packed_topk<float><<<grid, THREADS, smem, stream>>>(
-        (const float*)q, (const float*)emb, bias, out, B, D, TN, K, NN);
   }
   return (int)cudaGetLastError();
 }

@@ -14,9 +14,10 @@ PyTorch port of `wax_tpu.ops.flat_scan`. Backends, as in the JAX package:
   * "chunkmax": kernels K6 (per-128-row chunk maxima) and K7 (exact rescore of the
                 winning chunks), `ops/chunkmax_scan.py`. What "auto" picks at 512K
                 rows and more on a contiguous index.
-  * "pallas_packed": kernel K9 (csrc/flat_scan.cu `wax_k9_packed_topk`), K1's packed
-                keys selected by the TPU kernel's own k-pass max extraction over the
-                whole tile. It returns what "pallas_packed_sel" returns.
+  * "pallas_packed": kernel K9 (csrc/packed_topk.cu `wax_k9_packed_topk`), K1's
+                per-tile packed-key top-k with the scores on tensor cores (3xTF32,
+                within ~1e-6 of the f32 sums). It returns K1's keys except between
+                scores that straddle a 2^-12 bucket edge by that much.
 
 Each kernel wrapper takes its plain torch twin (`_packed_sel_topk_plain` for K1 and
 K9, `_scan_topk_plain` for K2) only when its tensors lie on the CPU; for CUDA tensors
@@ -180,14 +181,15 @@ def _packed_sel_scan_topk(q, emb, bias, k: int, tn: int):
 
 
 # ---------------------------------------------------------------------------------
-# K9: packed-key per-tile top-k by k-pass max extraction
+# K9: packed-key per-tile top-k on tensor cores
 # ---------------------------------------------------------------------------------
 
 
 def packed_topk_tiles(q, emb, bias, k: int, tn: int) -> torch.Tensor:
-    """K9 wrapper: K1's output, [B, N/tn * k] i32 per-tile packed keys, selected by k
-    rounds of a max over the whole tile (kernel on CUDA, the shared plain twin
-    `_packed_sel_topk_plain` on the CPU)."""
+    """K9 wrapper: K1's function, [B, N/tn * k] i32 per-tile packed keys, with 3xTF32
+    tensor-core scores (kernel on CUDA, the shared plain twin `_packed_sel_topk_plain`
+    on the CPU). Equal to K1 bit for bit where TF32 holds the inputs exactly (the 1/8
+    grid, any bf16 data); elsewhere a key may differ at a 2^-12 bucket edge."""
     global K9_LAUNCHES
     if on_cpu(q, emb, bias):
         return _packed_sel_topk_plain(q, emb, bias, k, tn)
@@ -298,8 +300,8 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
       k: top-k.
       backend: "auto" | "xla" | "pallas" / "pallas_exact" (K2, exact) |
         "pallas_packed_sel" (K1; scores compared and returned at 2^-12 relative, ties
-        to the lowest row) | "pallas_packed" (K9; the same results as
-        "pallas_packed_sel") | "blockmax" | "blockmax16" | "chunkmax" (K6 + K7, exact;
+        to the lowest row) | "pallas_packed" (K9; K1's ids, except between keys within
+        one 2^-12 bucket) | "blockmax" | "blockmax16" | "chunkmax" (K6 + K7, exact;
         needs capacity % 2048 == 0 and a contiguous index).
 
     Returns:
