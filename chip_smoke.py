@@ -7,14 +7,16 @@ Phases, each printing lines tagged with its name:
 
   device    require CUDA, print the card's name and power limit (nvidia-smi), turn TF32 off
   build     compile wax_tpu_torch/csrc/*.cu (nvcc, sm_90a, one process per source) and
-            print the seconds and each kernel's registers and spills
+            print the seconds, each kernel's registers and spills, and K6's tensor-core
+            launch (dynamic shared memory per CTA, CTAs per SM, grid)
   kernels   hold kernels K1 (packed-key scan), K2 (exact scan) and K9 (K1's function
             with 3xTF32 tensor-core scores) against their plain torch twins, and K9
             against K1: exact-arithmetic data must agree bit for bit, random unit
             vectors within the stated tolerances (near-ties only, overlap >= 0.999);
             kernel and plain times (CUDA events), bounds, torch.matmul f32
   kernels2  the same for K6 (chunk maxima) and K7 (bucket rescore) at the 1M-row
-            shapes: 1,048,576 x 384 and 1,048,576 x 768 bf16, B = 256
+            shapes: 1,048,576 x 384 and 1,048,576 x 768 bf16, B = 256 (x 768's numbers
+            under the key "x768" of their kernels-line entries)
   ingest    102,400 synthetic documents (32 Zipf words each) into a HybridSearchEngine
             on the card: BM25 builder on the host, full-width MiniLM (random weights,
             bf16) in batches of 256 into the flat vector engine
@@ -55,7 +57,8 @@ Phases, each printing lines tagged with its name:
             three modes
 
 Each serving phase sets the launch counts to 0 just before it runs and reads them just
-after; every kernel of its path must have launched. It exits non-zero on any failure,
+after; every kernel of its path must have launched. Each profiled window also prints its
+port kernels' recorded device events against their launches. It exits non-zero on any failure,
 and when no CUDA device is present. The line before the last is a JSON object of
 per-kernel results; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -64,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +84,7 @@ N_DOCS, DOC_WORDS, VOCAB_WORDS = 102_400, 32, 8192
 F32_TOL = 1e-5
 TRUNC_REL = 2.0**-12
 N_1M = 1_048_576
+N_QUERIES = 256  # queries per serving batch
 N_30K = 30_720  # the largest store of this corpus that the TPU serves through K8
 # the least time the card could take: bytes over the memory rate, operations over the
 # peak rate of their type (NVIDIA H100 SXM data sheet, dense, at 700 W)
@@ -128,40 +133,70 @@ def reset_launch_counts() -> None:
     chunkmax_scan.K6_LAUNCHES = ivf_kernel.K7_LAUNCHES = bm25_candidates_pallas.K8_LAUNCHES = 0
 
 
+KERNEL_FRAGMENTS = {"k1_packed_sel": "K1", "k2_scan_topk": "K2", "k3_rescore": "K3", "k4_chunked": "K4",
+                    "k5_rescore": "K5", "k6_chunk_maxima": "K6", "k7_bucket": "K7", "k8_candidates": "K8",
+                    "k9_packed_topk": "K9"}
+
+
+def short_kernel_name(key: str) -> str:
+    """K1..K9 for a port kernel's (demangled) name, else the name's first 60 characters."""
+    for frag, kid in KERNEL_FRAGMENTS.items():
+        if frag in key:
+            return kid
+    return key[:60]
+
+
 def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> None:
     """Run fn() `iters` times under torch.profiler and print the device's busy share of
-    the window (device time of all kernels / wall time) and the device time by kernel."""
+    the window (device time of all kernels / wall time), the device time by kernel, and
+    each port kernel's recorded device events against its launch count in the window;
+    where the two differ, also the window's device timeline. The profiler records no
+    device event from the first few ms of its trace, so one untimed call of fn() runs
+    first, and only the device events that start after it count. A full garbage
+    collection runs before the timed calls, so that one over a large host heap does not
+    land in them at random."""
+    import gc
+
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    mark = "device_profile window"  # also a device-side annotation event, which is no kernel
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(r[0] for r in rows)
-    if not rows:
+        gc.collect()
+        before = launch_counts()
+        with record_function(mark):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {kid: n - before[kid] for kid, n in launch_counts().items() if n > before[kid]}
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == mark)
+    timeline = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in events
+                      if e.device_type == DeviceType.CUDA and e.time_range.start >= start and e.name != mark)
+    if not timeline:
         log(phase, f"profile: no device time recorded over {wall_ms:.3f} ms of wall time (not measured)")
         return
-    rows.sort(reverse=True)
-    names = {"k1_packed_sel": "K1", "k2_scan_topk": "K2", "k3_rescore": "K3", "k4_chunked": "K4",
-             "k5_rescore": "K5", "k6_chunk_maxima": "K6", "k7_bucket": "K7", "k8_candidates": "K8",
-             "k9_packed_topk": "K9"}
-
-    def short(key):
-        for frag, kid in names.items():
-            if frag in key:
-                return kid
-        return key[:60]
-
+    by_name: dict = {}
+    for _, dur, name in timeline:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + dur / 1e3, n + 1)
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()), reverse=True)
+    busy = sum(r[0] for r in rows)
     log(phase, f"profile over {iters} calls: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}%); device ms by kernel: "
-        + "; ".join(f"{short(k)} {ms:.3f} ({n}x)" for ms, n, k in rows[:top]))
+        + "; ".join(f"{short_kernel_name(k)} {ms:.3f} ({n}x)" for ms, n, k in rows[:top]))
+    recorded = {kid: sum(1 for *_, name in timeline if short_kernel_name(name) == kid) for kid in launched}
+    log(phase, "profile: port kernels recorded/launched in the window: "
+        + ", ".join(f"{kid} {recorded[kid]}/{n}" for kid, n in sorted(launched.items())))
+    if recorded != launched:
+        log(phase, "profile: device timeline (start us, duration us, kernel): "
+            + "; ".join(f"{t - start:.1f} {d:.1f} {short_kernel_name(name)}" for t, d, name in timeline))
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -205,15 +240,48 @@ def device_phase():
 # ------------------------------------------------------------------------------- build
 
 
+def ptxas_functions(nvcc_log: str) -> dict:
+    """{kernel (mangled name): [registers, spill store bytes, spill load bytes]} from the
+    output of nvcc -Xptxas=-v."""
+    out, cur = {}, None
+    for ln in nvcc_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, [None, None, None])
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        elif cur and (m := re.search(r"Used (\d+) registers", ln)):
+            out[cur][0] = int(m.group(1))
+    return out
+
+
 def build_phase() -> None:
+    """Build the kernels; print each kernel's registers and spills (ptxas) and K6's
+    tensor-core launch: dynamic shared memory per CTA, CTAs per SM, grid."""
     from wax_tpu_torch.ops import _build
+    from wax_tpu_torch.ops import chunkmax_scan as cm
 
     path, secs, out = _build.build()
     _build.load_library()
-    regs = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
     log("build", f"{path.name} built in {secs:.3f} s")
-    for ln in regs:
-        log("build", ln)
+    logfile = path.with_suffix(".log")
+    funcs = ptxas_functions(out or (logfile.read_text() if logfile.exists() else ""))
+    names = list(funcs)
+    filt = Path(_build._nvcc()).parent / "cu++filt"
+    if names and filt.exists():
+        demangled = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True).stdout
+        names = demangled.splitlines() if len(demangled.splitlines()) == len(funcs) else names
+    for name, (regs, st, ld) in zip(names, funcs.values()):
+        for noise in ("(int)", "<unnamed>::", "(anonymous namespace)::", "void "):
+            name = name.replace(noise, "")
+        log("build", f"{short_kernel_name(name)} {name.split('(')[0]}: {regs} registers, "
+            f"{st} bytes spill stores, {ld} bytes spill loads")
+    for b in (N_QUERIES, 128):
+        p = cm.mma_plan(b, N_1M)
+        log("build", f"K6 tensor-core path at B {b}, N {N_1M}: {p['queries_per_cta']} queries per CTA, "
+            f"{p['smem_bytes']} bytes of dynamic shared memory per CTA ({p['stages']} stages of "
+            f"{p['depth_per_stage']} depths), {p['ctas_per_sm']} CTA(s) per SM, grid {p['grid_x']} x {p['grid_y']}")
 
 
 # ----------------------------------------------------------------------------- kernels
@@ -680,11 +748,14 @@ def kernel2_phase(dev, seed: int) -> dict:
                 msg += (f"; K6 {t['K6']:.4f} ms, plain {t['K6 plain']:.4f} ms, library (torch.matmul bf16) "
                         f"{t['K6 library']:.4f} ms, bound {b6[0]:.4f} ms ({b6[1]}); K7 {t['K7']:.4f} ms, plain "
                         f"{t['K7 plain']:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]})")
-                if d == 384:  # the slice shape (path b) goes into the kernels line
-                    results["K6"].update(ms=t["K6"], plain_ms=t["K6 plain"], library_ms=t["K6 library"],
-                                         bound_ms=b6[0], bound_by=b6[1])
-                    results["K7"].update(ms=t["K7"], plain_ms=t["K7 plain"], library_ms=None,
-                                         bound_ms=b7[0], bound_by=b7[1])
+                r6 = dict(ms=t["K6"], plain_ms=t["K6 plain"], library_ms=t["K6 library"], bound_ms=b6[0],
+                          bound_by=b6[1])
+                r7 = dict(ms=t["K7"], plain_ms=t["K7 plain"], library_ms=None, bound_ms=b7[0], bound_by=b7[1])
+                if d == 384:  # the slice shape (path b) is the kernels line's own
+                    results["K6"].update(r6)
+                    results["K7"].update(r7)
+                else:  # the bench's flat_1m_x768 shape rides beside it
+                    results["K6"]["x768"], results["K7"]["x768"] = r6, r7
             log("kernels2", msg)
             del emb, q, cmk, cmp, emb3
             torch.cuda.empty_cache()
@@ -1365,7 +1436,7 @@ def main(argv=None) -> int:
             "name": f"{kern} {name}", "route": "cuda", "source": f"wax_tpu_torch/csrc/{src}",
             "replaces": fn_line, "launches": launches[kern], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], **({"x768": r["x768"]} if "x768" in r else {}),
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

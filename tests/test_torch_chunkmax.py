@@ -65,6 +65,25 @@ def test_chunk_maxima_equal(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,d", [(1, 64), (129, 128), (200, 384), (300, 64), (256, 768)])
+def test_chunk_maxima_edge_shapes_equal(dtype, b, d):
+    """K6's function at the edges of its bf16 tile (B 1 to 300: one or two query blocks
+    of 128 or 256; d 64 to 768) and a dead tail, against the TPU kernel run the way
+    the JAX wrapper runs it (query block min(256, B rounded up to 8))."""
+    jd, td = DTYPES[dtype]
+    rng = np.random.default_rng(b + d)
+    n = 4096
+    emb, q = _grid(rng, (n, d)), _grid(rng, (b, d))
+    bias = np.where(np.arange(n) < n - 200, 0.0, NEG_INF).astype(np.float32)
+    tb = min(256, (b + 7) // 8 * 8)
+    jq = jnp.pad(jnp.asarray(q).astype(jd), ((0, -b % tb), (0, 0)))
+    cm = jcm._chunk_maxima(jq, jnp.asarray(emb).astype(jd), jnp.asarray(bias)[None, :], tb, 2048, True)
+    want = np.asarray(cm)[:b].reshape(b, 2, 128)[:, :, :16].reshape(b, 32)
+    got = tcm.chunk_maxima(torch.from_numpy(q).to(td), torch.from_numpy(emb).to(td), torch.from_numpy(bias))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("k", [1, 10, 128])
 def test_flat_scan_chunkmax_backend_equal(dtype, k):
     jd, td = DTYPES[dtype]

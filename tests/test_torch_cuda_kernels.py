@@ -96,9 +96,24 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fs.scan_topk_tiles(q.double(), emb.double(), bias, 5, 512)
 
 
+def _unaligned(x):
+    """A contiguous copy of x whose base lies one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 16 // x.element_size(), dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,d", [(256, 8192, 384), (37, 4096, 768), (13, 2048, 100), (64, 4096, 96)])
+@pytest.mark.parametrize("b,n,d", [(256, 8192, 384), (37, 4096, 768), (13, 2048, 100), (64, 4096, 96),
+                                   (1, 20096, 64), (200, 20096, 384), (300, 8192, 768), (256, 4096, 1536),
+                                   (128, 2048, 384), (129, 2048, 64)])
 def test_k6_chunk_maxima_equal_plain_on_exact_data(dev, dtype, b, n, d):
+    """Bit-equal to the plain twin on exact-arithmetic data, on 16-byte aligned and
+    unaligned bases; within 1e-5 on random unit vectors. The edges of the bf16 tile:
+    B 1 / 128 / 129 / 200 / 256 / 300 (one or two query blocks of 128 or 256), d 64 to
+    1,536, 157 chunks (not a multiple of the persistent grid), a dead tail."""
     g = torch.Generator().manual_seed(b + n + d)
     q, emb = _grid(g, (b, d), dev, dtype), _grid(g, (n, d), dev, dtype)
     bias = torch.zeros(n, device=dev)
@@ -106,7 +121,13 @@ def test_k6_chunk_maxima_equal_plain_on_exact_data(dev, dtype, b, n, d):
     k6 = cm.K6_LAUNCHES
     got = cm.chunk_maxima(q, emb, bias)
     assert cm.K6_LAUNCHES == k6 + 1
-    assert torch.equal(got, cm._chunk_maxima_plain(q, emb, bias))
+    want = cm._chunk_maxima_plain(q, emb, bias)
+    assert torch.equal(got, want)
+    assert torch.equal(cm.chunk_maxima(_unaligned(q), _unaligned(emb), _unaligned(bias)), want)
+    qr = fs.normalize_rows(torch.randn((b, d), generator=g)).to(dev, dtype).contiguous()
+    er = fs.normalize_rows(torch.randn((n, d), generator=g)).to(dev, dtype).contiguous()
+    err = (cm.chunk_maxima(qr, er, bias) - cm._chunk_maxima_plain(qr, er, bias)).abs().max()
+    assert float(err) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

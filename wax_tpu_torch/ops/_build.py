@@ -46,6 +46,10 @@ _SIGNATURES = {
     "wax_k8_candidates": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wax_k9_packed_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+# entries that launch nothing: (argument types); each returns a cudaError_t.
+_QUERIES = {
+    "wax_k6_mma_plan": [_I, _I, _P],
+}
 
 
 def _sources() -> list[Path]:
@@ -121,7 +125,7 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             path, _, _ = build()
             lib = ctypes.CDLL(str(path))
-            for name, args in _SIGNATURES.items():
+            for name, args in {**_SIGNATURES, **_QUERIES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes, fn.restype = args, _I
             lib.wax_cuda_error_string.argtypes = [_I]

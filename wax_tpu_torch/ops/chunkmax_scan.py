@@ -15,13 +15,15 @@ launches; on CPU tensors `chunk_maxima` runs its plain twin `_chunk_maxima_plain
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from wax_tpu_torch.ops._build import launch, on_cpu
+from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.ivf_kernel import ivf_rescore
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk
 
-__all__ = ["chunkmax_scan_topk", "chunk_maxima", "K6_LAUNCHES"]
+__all__ = ["chunkmax_scan_topk", "chunk_maxima", "mma_plan", "K6_LAUNCHES"]
 
 K6_LAUNCHES = 0
 _CHUNK = 128
@@ -55,6 +57,17 @@ def chunk_maxima(q, emb, bias):
                cm.data_ptr(), b, n, d, int(q.dtype == torch.bfloat16))
         K6_LAUNCHES += 1
     return cm
+
+
+def mma_plan(b: int, n: int) -> dict:
+    """How K6's bf16 tensor-core path launches for b queries over n rows on the current
+    CUDA device (builds the kernels; needs a card)."""
+    out = (ctypes.c_int * 7)()
+    err = load_library().wax_k6_mma_plan(b, n, ctypes.cast(out, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"wax_k6_mma_plan failed: CUDA error {err}")
+    keys = ("queries_per_cta", "smem_bytes", "grid_x", "grid_y", "ctas_per_sm", "stages", "depth_per_stage")
+    return dict(zip(keys, out))
 
 
 def chunkmax_scan_topk(queries: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor, k: int):

@@ -317,7 +317,8 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
 
     if backend == "auto":
         # The JAX package's thresholds, kept for parity of behaviour. They were set on
-        # another device and still await measurement on this one (ROADMAP item 4).
+        # another device and still await measurement on this one (ROADMAP queue 1,
+        # item 1: the port bench).
         if index.similarity == Similarity.EUCLIDEAN or index.capacity <= 2048 or k > _KMAX:
             backend = "xla"
         elif index.capacity <= 131072:
