@@ -10,10 +10,13 @@ Phases, each printing lines tagged with its name:
             print the seconds, each kernel's registers and spills, and K6's tensor-core
             launch (dynamic shared memory per CTA, CTAs per SM, grid)
   kernels   hold kernels K1 (packed-key scan), K2 (exact scan) and K9 (K1's function
-            with 3xTF32 tensor-core scores) against their plain torch twins, and K9
-            against K1: exact-arithmetic data must agree bit for bit, random unit
-            vectors within the stated tolerances (near-ties only, overlap >= 0.999);
-            kernel and plain times (CUDA events), bounds, torch.matmul f32
+            on K9's own tile), all three on 3xTF32 tensor-core scores, against their
+            plain torch twins, and K1 against K9: exact-arithmetic data must agree bit
+            for bit, random unit vectors within the stated tolerances (near-ties only,
+            overlap >= 0.999); each K1/K2 launch's plan (cluster split, grid, CTAs per
+            SM, shared memory); kernel and plain times (CUDA events), bounds (3xTF32
+            basis, FP32-FMA basis beside) and torch.matmul f32 at the slice shape and
+            at the headline 10,240 rows
   kernels2  the same for K6 (chunk maxima) and K7 (bucket rescore) at the 1M-row
             shapes: 1,048,576 x 384 and 1,048,576 x 768 bf16, B = 256 (x 768's numbers
             under the key "x768" of their kernels-line entries)
@@ -133,7 +136,8 @@ def reset_launch_counts() -> None:
     chunkmax_scan.K6_LAUNCHES = ivf_kernel.K7_LAUNCHES = bm25_candidates_pallas.K8_LAUNCHES = 0
 
 
-KERNEL_FRAGMENTS = {"k1_packed_sel": "K1", "k2_scan_topk": "K2", "k3_rescore": "K3", "k4_chunked": "K4",
+# K1 and K2 are one template (csrc/flat_scan.cu `scan_topk`), told apart by their output
+KERNEL_FRAGMENTS = {"PackedOut": "K1", "ExactOut": "K2", "k3_rescore": "K3", "k4_chunked": "K4",
                     "k5_rescore": "K5", "k6_chunk_maxima": "K6", "k7_bucket": "K7", "k8_candidates": "K8",
                     "k9_packed_topk": "K9"}
 
@@ -314,13 +318,22 @@ def _topk_agree(name, what, kv, kr, pv, pr, scores, k, exact, rel):
 
 def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
     """Run K1, K2 and K9 on one input against their plain twins, and K9 against K1
-    (bit for bit on exact data, near-ties only on random data); record errors/times."""
+    (bit for bit on exact data, near-ties only on random data); log K1's and K2's
+    launch plans; record errors, and at the slice (k 24) and headline shapes on random
+    data the times, bounds and torch.matmul f32 (the headline's under "rows_10240")."""
     import torch
 
     from wax_tpu_torch.ops import flat_scan as fs
 
+    (b, d), n = q.shape, emb.shape[0]
     scores = fs._scores_f32(q, emb) + bias[None, :]  # exact scores for near-tie checks
     for kern in ("K1", "K2", "K9"):
+        if kern in ("K1", "K2"):
+            p = fs.launch_plan(b, n, tn, k, dtype=q.dtype, exact=kern == "K2", device=q.device)
+            log("kernels", f"{name} {kern} plan: split {p['split']}, grid {p['grid']} = {p['ctas']} CTAs, "
+                f"{p['ctas_per_sm']} CTA(s) per SM, {p['max_active_clusters']} co-resident clusters, "
+                f"{p['smem_bytes']} bytes of shared memory, {p['threads']} threads ({p['consumer_warps']} consumer, "
+                f"{p['producer_warps']} producer warps), {p['stages']} stages")
         if kern in ("K1", "K9"):
             sel_fn = fs.packed_sel_tiles if kern == "K1" else fs.packed_topk_tiles
 
@@ -336,13 +349,13 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
                 check(torch.equal(got, ref), f"{name}: {kern} keys differ from the plain twin")
             kv, kr = fs._merge_tiles(*fs._decode_packed(got, k, tn), k)
             pv, pr = fs._merge_tiles(*fs._decode_packed(ref, k, tn), k)
-            if kern == "K9":  # K1's function with 3xTF32 scores: K1's keys up to bucket edges
+            if kern == "K9":  # K1's function on K9's tile: K1's keys up to bucket edges
                 k1 = fs.packed_sel_tiles(q, emb, bias, k, tn)
                 if exact:
                     check(torch.equal(got, k1), f"{name}: K9 keys differ from K1's on exact data")
                 _, ov1 = _topk_agree(name, "K9 vs K1", kv, kr, *fs._merge_tiles(*fs._decode_packed(k1, k, tn), k),
                                      scores, k, exact, TRUNC_REL)
-                log("kernels", f"{name} K9 vs K1: overlap={ov1:.4f}")
+                log("kernels", f"{name} K9 vs K1: overlap={ov1:.4f}, keys bit-equal={torch.equal(got, k1)}")
         else:
             def run_kernel():
                 return fs.scan_topk_tiles(q, emb, bias, k, tn)
@@ -365,21 +378,22 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         log("kernels", f"{name} {kern}: agree (max_abs_err={err:.3g}, overlap={overlap:.4f}) "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if name.startswith("slice") and k == FETCH_K and not exact:
-            r["ms"], r["plain_ms"] = ms, plain_ms
-            (b, d), n = q.shape, emb.shape[0]
-            out_bytes = b * (n // tn) * k * (8 if kern == "K2" else 4)
-            nbytes, flops = 4 * (b * d + n * d + n) + out_bytes, 2 * b * n * d
-            if kern == "K9":  # three TF32 products per f32 product on the tensor cores
-                fma_ms, _ = bound(nbytes, flops, "fp32")
-                r["bound_ms"], r["bound_by"] = bound(nbytes, 3 * flops, "tf32")
-                basis = f"3xTF32 at {PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s; FP32 FMA basis {fma_ms:.4f} ms"
-            else:
-                r["bound_ms"], r["bound_by"] = bound(nbytes, flops, "fp32")
-                basis = f"FP32 FMA at {PEAK_OPS_PER_S['fp32'] / 1e12:.0f} TFLOP/s"
-            r["library_ms"] = cuda_ms(lambda: torch.matmul(q, emb.t()))
-            log("kernels", f"{name} {kern}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {basis}), "
-                f"library (torch.matmul f32) {r['library_ms']:.4f} ms")
+        if exact or not (name.startswith("slice") and k == FETCH_K or name.startswith("headline")):
+            continue
+        out_bytes = b * (n // tn) * k * (8 if kern == "K2" else 4)
+        nbytes = q.element_size() * (b * d + n * d) + 4 * n + out_bytes
+        flops = 2 * b * n * d  # on the tensor cores three TF32 products per f32 product (one for bf16)
+        fma_ms, _ = bound(nbytes, flops, "fp32")
+        rec = {"ms": ms, "plain_ms": plain_ms}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, (3 if q.dtype == torch.float32 else 1) * flops, "tf32")
+        rec["library_ms"] = cuda_ms(lambda: torch.matmul(q, emb.t()))
+        if name.startswith("slice"):
+            r.update(rec)
+        else:
+            r["rows_10240"] = rec
+        log("kernels", f"{name} {kern}: bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, 3xTF32 at "
+            f"{PEAK_OPS_PER_S['tf32'] / 1e12:.0f} TFLOP/s; FP32 FMA basis {fma_ms:.4f} ms), "
+            f"library (torch.matmul f32) {rec['library_ms']:.4f} ms")
 
 
 def kernel_phase(dev, seed: int, quick: bool = False) -> dict:
@@ -1246,7 +1260,7 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     import torch
 
     from wax_tpu_torch.ops.bm25_candidates_pallas import dma_window
-    from wax_tpu_torch.ops.flat_scan import flat_scan_topk, scan_scores
+    from wax_tpu_torch.ops.flat_scan import _pick_tn, flat_scan_topk, launch_plan, scan_scores
     from wax_tpu_torch.parallel import sharded_hybrid as sh
     from wax_tpu_torch.parallel.mesh import data_mesh
     from wax_tpu_torch.parallel.sharded_scan import shard_dense_index
@@ -1273,6 +1287,11 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     timings: dict = {}
     served = []
     snap = engine.vector.snapshot()
+    tn = _pick_tn(snap.capacity)
+    p = launch_plan(N_QUERIES, snap.capacity, tn, FETCH_K, dtype=snap.emb.dtype, device=dev)
+    log("exact_30k", f"vector lane: K1 over capacity {snap.capacity} ({snap.emb.dtype}, tiles of {tn}) at B "
+        f"{N_QUERIES}, k {FETCH_K}: split {p['split']}, grid {p['grid']} = {p['ctas']} CTAs, {p['ctas_per_sm']} "
+        f"CTA(s) per SM, {p['smem_bytes']} bytes of shared memory")
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1436,7 +1455,7 @@ def main(argv=None) -> int:
             "name": f"{kern} {name}", "route": "cuda", "source": f"wax_tpu_torch/csrc/{src}",
             "replaces": fn_line, "launches": launches[kern], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], **({"x768": r["x768"]} if "x768" in r else {}),
+            "library_ms": r["library_ms"], **{key: r[key] for key in ("x768", "rows_10240") if key in r},
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -6,7 +6,7 @@ them against the built K9 on one NVIDIA GPU.
 
 Each variant is a copy of packed_topk.cu and its two headers with one thing changed:
 the depth and number of the `cp.async` ring's stages (with the CTAs per SM that its
-shared memory allows), K1's one-at-a-time selection in place of K9's, the TF32 rounding
+shared memory allows), K1's former one-at-a-time selection in place of K9's, the TF32 rounding
 by `cvt.rna.tf32.f32` in place of integer operations, or a part taken out (the
 selection, to see what the rest costs). Each is built with nvcc into its own
 library under DIR (default wax_tpu_torch/_build/k9_variants), checked bit for bit
@@ -28,6 +28,56 @@ REPO = Path(__file__).resolve().parent.parent
 SRC = REPO / "wax_tpu_torch" / "csrc"
 SELECT = "merge_rows<PackedKey>(sc, SC_LD, lists, KP, K, r0, nr, j * BN, lane);"
 K1_SELECT = "select_rows<PackedKey>(sc, SC_LD, BN, lists, KP, K, r0, nr, j * BN, lane);"
+# The one-at-a-time selection through shared memory that K1 and K2 used before they
+# moved onto merge_rows; the "k1sel" variants add it to flat_scan_keys.cuh.
+K1_SELECT_FNS = """
+// Insert x into the warp's descending list L[0..K) (x beats L[K-1]).
+template <typename KT>
+__device__ __forceinline__ void list_insert(KT* L, int K, KT x, int lane) {
+  int p = 0;
+  for (int base = 0; base < K; base += 32) {
+    int i = base + lane;
+    p += __popc(__ballot_sync(FULL, i < K && L[i] > x));
+  }
+  KT v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    int i = t * 32 + lane;
+    if (i > p && i < K) v[t] = L[i - 1];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    int i = t * 32 + lane;
+    if (i > p && i < K) L[i] = v[t];
+  }
+  if (lane == 0) L[p] = x;
+  __syncwarp();
+}
+
+// One warp merges rows r0 .. r0 + nr of a block of scores into the rows' lists: 32 keys
+// at a time are filtered against the k-th key, and the rare winner is inserted.
+template <typename Key>
+__device__ __forceinline__ void select_rows(const float* sc, int ld, int cols, typename Key::T* lists, int KP,
+                                            int K, int r0, int nr, int c0, int lane) {
+  using KT = typename Key::T;
+  for (int r = r0; r < r0 + nr; ++r) {
+    KT* L = lists + (size_t)r * KP;
+    for (int cc = 0; cc < cols; cc += 32) {
+      const int col = cc + lane;
+      const KT key = Key::make(sc[r * ld + col], c0 + col);
+      unsigned m = __ballot_sync(FULL, key > L[K - 1]);
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        const KT x = __shfl_sync(FULL, key, src);
+        if (x > L[K - 1]) list_insert(L, K, x, lane);
+      }
+    }
+  }
+}
+
+"""
 TO_TF32 = "__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }"
 CVT_TF32 = ('__device__ __forceinline__ uint32_t to_tf32(float x) { uint32_t r; '
             'asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x)); return r; }')
@@ -79,7 +129,10 @@ def variant_sources(bk: int, stages: int, ctas: int, change: str) -> dict[str, s
                   "  __syncthreads();\n  if (threadIdx.x == 0) atomicAdd(&prof_cycles[0], (unsigned long long)(clock64() - t_start));\n"
                   "  for (int i = threadIdx.x; i < nq * K; i += THREADS) {")
     k9 = _sub(k9, SELECT, select)
-    return {"tf32x3_tile.cuh": tile, "packed_topk.cu": k9, "flat_scan_keys.cuh": (SRC / "flat_scan_keys.cuh").read_text()}
+    keys = (SRC / "flat_scan_keys.cuh").read_text()
+    if "k1sel" in change:
+        keys = _sub(keys, "// 128 keys held 4 per lane", K1_SELECT_FNS + "// 128 keys held 4 per lane")
+    return {"tf32x3_tile.cuh": tile, "packed_topk.cu": k9, "flat_scan_keys.cuh": keys}
 
 
 def main(argv=None) -> int:

@@ -37,16 +37,80 @@ def _grid(g, shape, dev, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,k,n,tn", [(13, 10, 4096, 2048), (256, 24, 8192, 2048),
-                                      (64, 128, 2048, 1024), (7, 1, 1536, 512)])
-def test_kernels_equal_plain_on_exact_data(dev, dtype, b, k, n, tn):
-    g = torch.Generator().manual_seed(b * 1000 + k)
-    q, emb = _grid(g, (b, 96), dev, dtype), _grid(g, (n, 96), dev, dtype)
+@pytest.mark.parametrize("b,k,n,tn,d,split,unaligned", [
+    (13, 10, 4096, 2048, 96, None, False), (256, 24, 8192, 2048, 96, None, False),
+    (64, 128, 2048, 1024, 96, None, False), (7, 1, 1536, 512, 96, None, False),
+    (1, 10, 2048, 2048, 384, None, False),  # plan: S 8
+    (13, 24, 10240, 2048, 37, None, True),  # S 8; rows not 16-byte aligned
+    (256, 10, 10240, 2048, 384, None, False),  # the headline shape: S 8, 160 CTAs
+    (300, 100, 10240, 2048, 768, 4, False),
+    (256, 24, 32768, 2048, 384, None, False),  # exact_30k's capacity: S 4
+    (300, 128, 32768, 2048, 96, None, True),  # S 2
+    (256, 24, 32768, 2048, 768, 1, False),
+    (13, 1, 10240, 2048, 96, 2, False),
+    (300, 24, 2048, 1024, 384, 8, True),
+])
+def test_kernels_equal_plain_on_exact_data(dev, dtype, b, k, n, tn, d, split, unaligned):
+    """K1 and K2 on the 1/8 grid, where their 3xTF32 scores are exact: bit-equal to the
+    plain twins at every cluster split (S 1, 2, 4, 8: forced, or the plan's), ragged
+    and wide batches, d 37 to 768, k 1 to 128, aligned and unaligned bases."""
+    g = torch.Generator().manual_seed(b * 1000 + k + d)
+    q, emb = _grid(g, (b, d), dev, dtype), _grid(g, (n, d), dev, dtype)
     bias = torch.zeros(n, device=dev)
     bias[torch.randperm(n, generator=g)[: n // 10].to(dev)] = fs.NEG_INF
-    assert torch.equal(fs.packed_sel_tiles(q, emb, bias, k, tn), fs._packed_sel_topk_plain(q, emb, bias, k, tn))
-    (kv, kr), (pv, pr) = fs.scan_topk_tiles(q, emb, bias, k, tn), fs._scan_topk_plain(q, emb, bias, k, tn)
+    if unaligned:
+        q, emb = _unaligned(q), _unaligned(emb)
+    k1, k2 = fs.K1_LAUNCHES, fs.K2_LAUNCHES
+    got = fs.packed_sel_tiles(q, emb, bias, k, tn, split)
+    assert torch.equal(got, fs._packed_sel_topk_plain(q, emb, bias, k, tn))
+    (kv, kr), (pv, pr) = fs.scan_topk_tiles(q, emb, bias, k, tn, split), fs._scan_topk_plain(q, emb, bias, k, tn)
     assert torch.equal(kv, pv) and torch.equal(kr, pr)
+    assert (fs.K1_LAUNCHES, fs.K2_LAUNCHES) == (k1 + 1, k2 + 1)
+
+
+def _assert_exact_near(got, ref, scores, k):
+    """Per-tile (vals, rows) of K2 against its plain twin on random data: tile values
+    within 1e-5; merged top-k ids equal except near-ties of the k-th exact score."""
+    (gv, gr), (rv, rr) = got, ref
+    assert float((gv - rv).abs().max()) <= 1e-5
+    (mv, mr), (pv, pr) = fs._merge_tiles(gv, gr, k), fs._merge_tiles(rv, rr, k)
+    hit = 0
+    for b in range(mr.shape[0]):
+        a, p = set(mr[b].tolist()), set(pr[b].tolist())
+        hit += len(a & p)
+        for row in a ^ p:
+            assert row >= 0 and abs(float(scores[b, row]) - float(pv[b, k - 1])) <= 1e-5, (b, row)
+    assert hit / mr.numel() >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,n,tn,d", [(256, 10, 10240, 2048, 384), (256, 24, 32768, 2048, 384),
+                                        (300, 128, 2048, 1024, 96), (13, 24, 10240, 2048, 37)])
+def test_k1_k2_near_plain_on_random_unit_vectors(dev, dtype, b, k, n, tn, d):
+    """On random unit vectors K1's 3xTF32 keys may differ from the plain twin's and
+    K9's only at a 2^-12 bucket edge; K2's tile values sit within 1e-5 of the f32 sums
+    and its ids differ only among near-ties."""
+    g = torch.Generator().manual_seed(b + k + n + d)
+    q = fs.normalize_rows(torch.randn((b, d), generator=g)).to(dev, dtype).contiguous()
+    emb = fs.normalize_rows(torch.randn((n, d), generator=g)).to(dev, dtype).contiguous()
+    bias = torch.zeros(n, device=dev)
+    bias[torch.randperm(n, generator=g)[: n // 10].to(dev)] = fs.NEG_INF
+    scores = fs._scores_f32(q, emb) + bias[None, :]
+    got = fs.packed_sel_tiles(q, emb, bias, k, tn)
+    _assert_packed_near(got, fs._packed_sel_topk_plain(q, emb, bias, k, tn), scores, k, tn, "K1 vs plain")
+    _assert_packed_near(got, fs.packed_topk_tiles(q, emb, bias, k, tn), scores, k, tn, "K1 vs K9")
+    _assert_exact_near(fs.scan_topk_tiles(q, emb, bias, k, tn), fs._scan_topk_plain(q, emb, bias, k, tn), scores, k)
+
+
+def test_launch_plan_reports_the_cluster_split(dev):
+    """The C side's plan: a CTA fits the card at every split, and the split is
+    scan_plan's (S 8 at 10,240 rows, S 4 at 32,768, S 1 at 131,072 for B 256)."""
+    for n, want in ((10240, 8), (32768, 4), (131072, 1)):
+        for exact, dtype in ((False, torch.float32), (True, torch.float32), (True, torch.bfloat16)):
+            p = fs.launch_plan(256, n, 2048, 24, dtype=dtype, exact=exact, device=dev)
+            assert p["split"] == want and p["ctas_per_sm"] >= 1 and p["max_active_clusters"] >= 1, p
+    p = fs.launch_plan(256, 10240, 2048, 128, exact=True, device=dev)  # the most shared memory: u64 lists of 128
+    assert p["split"] == 8 and p["ctas_per_sm"] >= 1 and p["max_active_clusters"] >= 1, p
 
 
 def test_k9_unaligned_views_launch(dev):
@@ -94,6 +158,10 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fs.scan_topk_tiles(q.cpu(), emb, bias, 5, 512)
     with pytest.raises(ValueError):
         fs.scan_topk_tiles(q.double(), emb.double(), bias, 5, 512)
+    with pytest.raises(ValueError):  # 512 rows do not split into 8 CTAs of a multiple of 128
+        fs.packed_sel_tiles(q, emb, bias, 5, 512, split=8)
+    with pytest.raises(ValueError):
+        fs.scan_topk_tiles(q, emb, bias, 5, 512, split=3)
 
 
 def _unaligned(x):

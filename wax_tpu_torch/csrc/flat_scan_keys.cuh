@@ -20,55 +20,6 @@ struct PackedKey {
   }
 };
 
-// Insert x into the warp's descending list L[0..K) (x beats L[K-1]).
-template <typename KT>
-__device__ __forceinline__ void list_insert(KT* L, int K, KT x, int lane) {
-  int p = 0;
-  for (int base = 0; base < K; base += 32) {
-    int i = base + lane;
-    p += __popc(__ballot_sync(FULL, i < K && L[i] > x));
-  }
-  KT v[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    int i = t * 32 + lane;
-    if (i > p && i < K) v[t] = L[i - 1];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    int i = t * 32 + lane;
-    if (i > p && i < K) L[i] = v[t];
-  }
-  if (lane == 0) L[p] = x;
-  __syncwarp();
-}
-
-// One warp merges rows r0 .. r0 + nr of a block of scores sc[row * ld + col] (cols
-// columns, a multiple of 32, which are tile columns c0 ..) into the rows' lists
-// lists[row * KP ..]: 32 keys at a time are filtered against the k-th key, and the rare
-// winner is inserted. Keys are unique within a tile, so the lists are the exact top-k
-// whatever order the blocks arrive in.
-template <typename Key>
-__device__ __forceinline__ void select_rows(const float* sc, int ld, int cols, typename Key::T* lists, int KP,
-                                            int K, int r0, int nr, int c0, int lane) {
-  using KT = typename Key::T;
-  for (int r = r0; r < r0 + nr; ++r) {
-    KT* L = lists + (size_t)r * KP;
-    for (int cc = 0; cc < cols; cc += 32) {
-      const int col = cc + lane;
-      const KT key = Key::make(sc[r * ld + col], c0 + col);
-      unsigned m = __ballot_sync(FULL, key > L[K - 1]);
-      while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const KT x = __shfl_sync(FULL, key, src);
-        if (x > L[K - 1]) list_insert(L, K, x, lane);
-      }
-    }
-  }
-}
-
 // 128 keys held 4 per lane (element i = t * 32 + lane in v[t]) sorted descending by a
 // bitonic network: shuffles across lanes, register swaps across the four rows.
 template <typename KT>
@@ -120,16 +71,63 @@ __device__ __forceinline__ void merge128_desc(KT (&lv)[4], const KT (&s)[4], int
   for (int j = 16; j > 0; j >>= 1) cmp_swap_lanes(lv, j, 128, lane);
 }
 
-// As select_rows for a block of 128 columns, with each row's list held in registers
-// while the warp merges the block into it (lane l keeps list positions l, l + 32, ...;
-// KP <= 128, kept sorted over all KP positions, those from K on with no promise).
+// lv (32 keys, descending across lanes) := the 32 largest of lv and w (both descending).
+template <typename KT>
+__device__ __forceinline__ void merge32_desc(KT& lv, KT w, int lane) {
+  const KT r = __shfl_sync(FULL, w, 31 - lane);
+  lv = lv > r ? lv : r;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const KT o = __shfl_xor_sync(FULL, lv, j);
+    lv = (lv > o) == ((lane & j) == 0) ? lv : o;
+  }
+}
+
+// 32 keys, one per lane, sorted descending across lanes (bitonic).
+template <typename KT>
+__device__ __forceinline__ void sort32_desc(KT& w, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const KT o = __shfl_xor_sync(FULL, w, j);
+      w = (w > o) == (((lane & j) == 0) == ((lane & k) == 0)) ? w : o;
+    }
+}
+
+// The position of the i-th (from 0) set bit of m; i < popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int i) {
+  int pos = 0;
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) {
+    const unsigned low = m & ((1u << sh) - 1u);
+    const int c = __popc(low);
+    if (i >= c) {
+      i -= c;
+      m >>= sh;
+      pos += sh;
+    } else {
+      m = low;
+    }
+  }
+  return pos;
+}
+
+// One warp merges rows r0 .. r0 + nr of a block of scores sc[row * ld + col] (128
+// columns, which are tile columns c0 ..) into the rows' sorted lists lists[row * KP ..],
+// each row's list held in registers while the warp merges the block into it (lane l
+// keeps list positions l, l + 32, ...; KP <= 128, kept sorted over all KP positions,
+// those from K on with no promise). Keys are unique within a tile, so the lists are the
+// exact top-k whatever order the blocks arrive in.
 // The few keys that beat the k-th are inserted one at a time (a ballot count and a
 // one-position shuffle of the tail); when more than SERIAL_MAX do, as in a tile's
 // first blocks, the block's 128 keys are sorted and merged with the list in one
-// bitonic pass instead.
+// bitonic pass instead. With SORT_WINNERS, when 32 or fewer keys win they are gathered
+// one per lane, sorted and merged, and lists of 32 (K <= 32) merge as one register row:
+// a third to a quarter of the shuffles of the 128-key sort.
 constexpr int SERIAL_MAX = 3;
 
-template <typename Key>
+template <typename Key, bool SORT_WINNERS = false>
 __device__ __forceinline__ void merge_rows(const float* sc, int ld, typename Key::T* lists, int KP, int K, int r0,
                                            int nr, int c0, int lane) {
   using KT = typename Key::T;
@@ -150,9 +148,31 @@ __device__ __forceinline__ void merge_rows(const float* sc, int ld, typename Key
       mk[t] = __ballot_sync(FULL, kx[t] > kth);
       n += __popc(mk[t]);
     }
-    if (n > SERIAL_MAX) {
+    if (SORT_WINNERS && n > SERIAL_MAX && n <= 32) {
+      KT w = Key::sentinel();  // lane i: the i-th winner in block order
+      int base = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int i = lane - base, c = __popc(mk[t]);
+        const bool mine = i >= 0 && i < c;
+        const KT x = __shfl_sync(FULL, kx[t], mine ? nth_set_bit(mk[t], i) : lane);
+        w = mine ? x : w;
+        base += c;
+      }
+      sort32_desc(w, lane);
+      if (KR == 1) {
+        merge32_desc(lv[0], w, lane);
+      } else {
+        const KT s[4] = {w, Key::sentinel(), Key::sentinel(), Key::sentinel()};
+        merge128_desc(lv, s, lane);
+      }
+    } else if (n > SERIAL_MAX) {
       sort128_desc(kx, lane);
-      merge128_desc(lv, kx, lane);
+      if (SORT_WINNERS && KR == 1) {
+        merge32_desc(lv[0], kx[0], lane);
+      } else {
+        merge128_desc(lv, kx, lane);
+      }
     } else {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {

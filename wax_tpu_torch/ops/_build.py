@@ -36,8 +36,8 @@ _lib: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every kernel entry: (argument types); each returns a cudaError_t.
 _SIGNATURES = {
-    "wax_k1_packed_sel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "wax_k2_scan_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wax_k1_packed_sel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "wax_k2_scan_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "wax_k3_rescore_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wax_k4_chunked_sel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wax_k5_rescore_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -49,6 +49,7 @@ _SIGNATURES = {
 # entries that launch nothing: (argument types); each returns a cudaError_t.
 _QUERIES = {
     "wax_k6_mma_plan": [_I, _I, _P],
+    "wax_flat_scan_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -5,10 +5,15 @@ PyTorch port of `wax_tpu.ops.flat_scan`. Backends, as in the JAX package:
   * "xla":      full f32 score matrix + stable top-k (the name is kept for parity;
                 here it is plain torch). Correctness oracle.
   * "pallas" / "pallas_exact": kernel K2 (csrc/flat_scan.cu `wax_k2_scan_topk`), the
-                exact fused scan with per-tile top-k by (score desc, column asc).
+                fused scan with per-tile top-k by (score desc, column asc). Its scores
+                are 3xTF32 tensor-core sums: exact on data TF32 holds (the 1/8 grid,
+                any bf16), within ~1e-6 of the f32 sums elsewhere, where ids may differ
+                from the plain twin's only among near-ties of the k-th score.
   * "pallas_packed_sel": kernel K1 (csrc/flat_scan.cu `wax_k1_packed_sel`), per-tile
                 top-k over packed i32 keys whose scores are truncated to 2^-12
-                relative. What "auto" picks at mid N.
+                relative. What "auto" picks at mid N. K1 and K2 share one body on
+                3xTF32 tensor-core scores; a (query block, tile) pair is split over a
+                cluster of `scan_plan(...)["split"]` CTAs to fill the card.
   * "blockmax" / "blockmax16": exact chunk-max pruned top-k in plain torch (the
                 second with a bf16 coarse pass and an exact f32 rescore).
   * "chunkmax": kernels K6 (per-128-row chunk maxima) and K7 (exact rescore of the
@@ -17,7 +22,8 @@ PyTorch port of `wax_tpu.ops.flat_scan`. Backends, as in the JAX package:
   * "pallas_packed": kernel K9 (csrc/packed_topk.cu `wax_k9_packed_topk`), K1's
                 per-tile packed-key top-k with the scores on tensor cores (3xTF32,
                 within ~1e-6 of the f32 sums). It returns K1's keys except between
-                scores that straddle a 2^-12 bucket edge by that much.
+                scores that straddle a 2^-12 bucket edge by that much (K1 does the
+                same since it moved onto the tensor cores).
 
 Each kernel wrapper takes its plain torch twin (`_packed_sel_topk_plain` for K1 and
 K9, `_scan_topk_plain` for K2) only when its tensors lie on the CPU; for CUDA tensors
@@ -29,10 +35,13 @@ live rows, NEG_INF otherwise).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from wax_tpu_torch.index.dense import DenseIndex, Similarity
-from wax_tpu_torch.ops._build import launch, on_cpu
+from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk, masked_top_k, stable_top_k
 
 __all__ = [
@@ -42,6 +51,8 @@ __all__ = [
     "packed_sel_tiles",
     "packed_topk_tiles",
     "scan_topk_tiles",
+    "scan_plan",
+    "launch_plan",
     "K1_LAUNCHES",
     "K2_LAUNCHES",
     "K9_LAUNCHES",
@@ -125,6 +136,60 @@ def _check_kernel_args(q, emb, bias, k: int, tn: int) -> None:
 
 
 # ---------------------------------------------------------------------------------
+# K1 and K2's launch: the cluster split
+# ---------------------------------------------------------------------------------
+
+_QB = 64  # queries per CTA
+_SPLITS = (1, 2, 4, 8)  # CTAs per (query block, tile) pair: a thread-block cluster
+
+
+def scan_plan(b: int, n: int, tn: int, k: int, sms: int) -> dict:
+    """How K1 and K2 split their work for b queries over n rows in tiles of tn, k per
+    tile, on a card of `sms` SMs: each (64-query block, tile) pair goes to a cluster of
+    `split` CTAs, each over tn / split rows (a multiple of 128). The split is the
+    smallest whose grid reaches `sms` CTAs, else the largest allowed.
+
+    Returns {"split": S, "grid": (S, query blocks, tiles), "ctas": their product}."""
+    if not 1 <= k <= min(_KMAX, tn):
+        raise ValueError(f"k={k} outside [1, {min(_KMAX, tn)}]")
+    pairs = -(-b // _QB) * (n // tn)
+    allowed = [s for s in _SPLITS if tn % (128 * s) == 0]
+    split = next((s for s in allowed if pairs * s >= sms), allowed[-1])
+    return {"split": split, "grid": (split, -(-b // _QB), n // tn), "ctas": pairs * split}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_for(q, emb, k: int, tn: int, split: int | None) -> int:
+    if split is None:
+        return scan_plan(q.shape[0], emb.shape[0], tn, k, _sms(q.device.index or 0))["split"]
+    if split not in _SPLITS or tn % (128 * split):
+        raise ValueError(f"split {split} must be one of {_SPLITS} with tile width {tn} a multiple of 128 * split")
+    return split
+
+
+def launch_plan(b: int, n: int, tn: int, k: int, *, dtype=torch.float32, exact: bool = False,
+                device=None) -> dict:
+    """scan_plan on this card, with what the C side reports for K1's (K2's with
+    `exact`) launch: dynamic shared memory per CTA, CTAs per SM, co-resident clusters,
+    threads, ring stages and warp counts. Launches nothing; needs a card."""
+    dev = torch.device(device if device is not None else "cuda")
+    plan = scan_plan(b, n, tn, k, _sms(dev.index or 0))
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(dev):
+        err = load_library().wax_flat_scan_plan(int(exact), int(dtype == torch.bfloat16), b, n, tn, k,
+                                                plan["split"], ctypes.cast(out, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"wax_flat_scan_plan failed: CUDA error {err}")
+    keys = ("smem_bytes", "ctas_per_sm", "max_active_clusters", "threads", "stages", "consumer_warps",
+            "producer_warps")
+    return {**plan, **dict(zip(keys, out))}
+
+
+# ---------------------------------------------------------------------------------
 # K1: packed-key per-tile top-k
 # ---------------------------------------------------------------------------------
 
@@ -148,9 +213,12 @@ def _packed_sel_topk_plain(q, emb, bias, k: int, tn: int) -> torch.Tensor:
     return top[:, :, :k].reshape(b, -1)
 
 
-def packed_sel_tiles(q, emb, bias, k: int, tn: int) -> torch.Tensor:
+def packed_sel_tiles(q, emb, bias, k: int, tn: int, split: int | None = None) -> torch.Tensor:
     """K1 wrapper: per-tile packed keys [B, N/tn * k] (kernel on CUDA, plain twin on
-    the CPU)."""
+    the CPU). `split` forces the CTAs per (query block, tile) pair; by default
+    `scan_plan` picks it. Equal to the plain twin bit for bit where TF32 holds the
+    inputs exactly (the 1/8 grid, any bf16 data); elsewhere a key may differ at a
+    2^-12 bucket edge."""
     global K1_LAUNCHES
     if on_cpu(q, emb, bias):
         return _packed_sel_topk_plain(q, emb, bias, k, tn)
@@ -159,7 +227,7 @@ def packed_sel_tiles(q, emb, bias, k: int, tn: int) -> torch.Tensor:
     out = torch.empty((b, n // tn * k), dtype=torch.int32, device=q.device)
     if b:
         launch("wax_k1_packed_sel", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
-               out.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16))
+               out.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16), _split_for(q, emb, k, tn, split))
         K1_LAUNCHES += 1
     return out
 
@@ -223,9 +291,10 @@ def _scan_topk_plain(q, emb, bias, k: int, tn: int):
     return vals.reshape(b, -1), (local + base).to(torch.int32).reshape(b, -1)
 
 
-def scan_topk_tiles(q, emb, bias, k: int, tn: int):
+def scan_topk_tiles(q, emb, bias, k: int, tn: int, split: int | None = None):
     """K2 wrapper: per-tile (vals, rows) [B, N/tn * k] (kernel on CUDA, plain twin on
-    the CPU)."""
+    the CPU); `split` as for K1. The kernel's values are 3xTF32 sums: equal to the
+    twin's on the 1/8 grid and bf16 data, within ~1e-6 elsewhere."""
     global K2_LAUNCHES
     if on_cpu(q, emb, bias):
         return _scan_topk_plain(q, emb, bias, k, tn)
@@ -235,7 +304,8 @@ def scan_topk_tiles(q, emb, bias, k: int, tn: int):
     rows = torch.empty((b, n // tn * k), dtype=torch.int32, device=q.device)
     if b:
         launch("wax_k2_scan_topk", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
-               vals.data_ptr(), rows.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16))
+               vals.data_ptr(), rows.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16),
+               _split_for(q, emb, k, tn, split))
         K2_LAUNCHES += 1
     return vals, rows
 
