@@ -261,10 +261,13 @@ def ptxas_functions(nvcc_log: str) -> dict:
 
 
 def build_phase() -> None:
-    """Build the kernels; print each kernel's registers and spills (ptxas) and K6's
-    tensor-core launch: dynamic shared memory per CTA, CTAs per SM, grid."""
+    """Build the kernels; print each kernel's registers and spills (ptxas), K4's and
+    K7's launches (shared memory per CTA, CTAs per SM) and K6's tensor-core launch:
+    dynamic shared memory per CTA, CTAs per SM, grid."""
     from wax_tpu_torch.ops import _build
+    from wax_tpu_torch.ops import bm25_chunked_pallas as ck
     from wax_tpu_torch.ops import chunkmax_scan as cm
+    from wax_tpu_torch.ops import ivf_kernel as ivf
 
     path, secs, out = _build.build()
     _build.load_library()
@@ -281,6 +284,15 @@ def build_phase() -> None:
             name = name.replace(noise, "")
         log("build", f"{short_kernel_name(name)} {name.split('(')[0]}: {regs} registers, "
             f"{st} bytes spill stores, {ld} bytes spill loads")
+    p = ck.launch_plan()
+    check(p["ctas_per_sm"] >= 1, f"K4's 32-slot body does not fit an SM: {p}")
+    log("build", f"K4 32-slot body: {p['threads']} threads, {p['smem_bytes']} bytes of dynamic shared memory per "
+        f"CTA, {p['ctas_per_sm']} CTA(s) per SM")
+    for d, k in ((384, 20), (768, 24)):
+        p = ivf.launch_plan(d, 128, k)
+        check(p["ring"] == 1 and p["ctas_per_sm"] >= 1, f"K7 at d {d}, k {k} does not take the ring body: {p}")
+        log("build", f"K7 at d {d} bf16, k {k}: ring body, {p['rows_per_slab']}-row slabs, {p['smem_bytes']} "
+            f"bytes of dynamic shared memory per CTA, {p['ctas_per_sm']} CTA(s) per SM")
     for b in (N_QUERIES, 128):
         p = cm.mma_plan(b, N_1M)
         log("build", f"K6 tensor-core path at B {b}, N {N_1M}: {p['queries_per_cta']} queries per CTA, "
@@ -949,6 +961,11 @@ def engine_1m_phase(dev, seed: int) -> dict:
     # rescore_topk(fwd_fused=None) takes K5, which must equal the fused route (K3)
     split = dataclasses.replace(lex, fwd_fused=None)
     tids4 = [torch.from_numpy(served["lanes"][i][4]).to(dev) for i in range(4)]
+    for i, t in enumerate(tids4):  # K4 itself on each batch's chunk windows
+        _, _, slots, _ = _k4_case(f"engine_1m batch {i}", lex.pk_chunks, lex.chunk_base, lex.chunk_counts,
+                                  lex.pk_max_chunks, lex.pk_qb, t)
+    log("engine_1m", f"K4 on the 4 batches' own chunk windows ({slots} slots, the last batch's) equal to its "
+        f"plain twin in `any` and `count` modes")
     via_k3 = [bm25_candidates_topk_pallas(t, lex, FETCH_K, mode) for t, mode in zip(tids4, modes)]
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1029,6 +1046,29 @@ def synth_sharded_lex(n: int, n_terms: int, budget: int, dev, seed: int = 5, per
     )
 
 
+def _k4_case(what, pk, chunk_base, chunk_counts, max_chunks, qb, tids):
+    """K4 against its plain twin in `any` and `count` modes on a batch's own chunk
+    windows, as `chunked_candidates_sel` builds them. Returns (win, seg_log2, slots,
+    the plain twin's `count`-mode (rows, keys))."""
+    import torch
+
+    from wax_tpu_torch.index.lex import PK_CHUNK
+    from wax_tpu_torch.ops import bm25_chunked_pallas as ck
+
+    q = tids.shape[1]
+    slots = ck.slots_for_query(q)
+    win = ck.pack_query_chunks(tids, chunk_base, chunk_counts, slots, max_chunks, pk.shape[0] // PK_CHUNK - 1)
+    seg = 1
+    while (1 << seg) < 2 * q:
+        seg += 1
+    for mode in ("any", "count"):
+        (kr, kk), (pr, pkk) = ck.chunked_sel(win, pk, qb=qb, seg_log2=seg, mode=mode), \
+            ck._chunked_sel_plain(win, pk, qb, seg, mode, 3)
+        torch.cuda.synchronize()
+        check(torch.equal(kr, pr) and torch.equal(kk, pkk), f"{what}: K4 ({mode}) differs from its plain twin")
+    return win, seg, slots, (pr, pkk)
+
+
 def _k3_k4_cases(lex, tids, results):
     """K4 and K3 against their plain twins on this path's own inputs: the chunk
     windows of the batch's queries, and the candidates K4 ranks for the rescore."""
@@ -1040,18 +1080,9 @@ def _k3_k4_cases(lex, tids, results):
     from wax_tpu_torch.ops.topk import stable_top_k
 
     b, q = tids.shape
-    slots = ck.slots_for_query(q)
     pk = lex.pk_chunks[0]
-    win = ck.pack_query_chunks(tids, lex.chunk_base[0], lex.chunk_counts[0], slots, lex.pk_max_chunks,
-                               pk.shape[0] // PK_CHUNK - 1)
-    seg = 1
-    while (1 << seg) < 2 * q:
-        seg += 1
-    for mode in ("any", "count"):
-        (kr, kk), (pr, pkk) = ck.chunked_sel(win, pk, qb=lex.pk_qb, seg_log2=seg, mode=mode), \
-            ck._chunked_sel_plain(win, pk, lex.pk_qb, seg, mode, 3)
-        torch.cuda.synchronize()
-        check(torch.equal(kr, pr) and torch.equal(kk, pkk), f"K4 ({mode}) differs from its plain twin")
+    win, seg, slots, (pr, pkk) = _k4_case("hybrid_1m", pk, lex.chunk_base[0], lex.chunk_counts[0],
+                                          lex.pk_max_chunks, lex.pk_qb, tids)
     # the rescore's input, as the lane builds it: top-256 candidates by key, row-sorted
     _, cpos = stable_top_k(pkk, 256)
     crows = torch.gather(pr, 1, cpos)

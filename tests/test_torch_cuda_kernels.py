@@ -199,20 +199,66 @@ def test_k6_chunk_maxima_equal_plain_on_exact_data(dev, dtype, b, n, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,nprobe,d,k", [(256, 20, 384, 10), (5, 3, 100, 128), (9, 7, 96, 1)])
+@pytest.mark.parametrize("b,nprobe,d,k", [(256, 20, 384, 10), (5, 3, 100, 128), (9, 7, 96, 1),
+                                          (64, 20, 384, 32), (64, 20, 384, 33), (64, 20, 768, 128),
+                                          (64, 20, 384, 129), (13, 24, 37, 20), (300, 6, 100, 33)])
 def test_k7_bucket_rescore_equal_plain_on_exact_data(dev, dtype, b, nprobe, d, k):
-    g = torch.Generator().manual_seed(b * nprobe + d)
+    """Bit-equal to the plain twin on exact-arithmetic data: k 1-128 on the slab ring
+    (lists of 32 keys for k <= 32, 128 for k <= 128) and k 129 on the arg-max body;
+    duplicated buckets (ties to the lower probe rank), a bucket with no live row, rows
+    that are not 16-byte multiples (d 37, and d 100 in bf16: ordinary loads) and a base
+    that is not 16-byte aligned."""
+    g = torch.Generator().manual_seed(b * nprobe + d + k)
     c = 32
     emb3 = _grid(g, (c, 128, d), dev, dtype)
     emb3[1] = emb3[5]  # duplicate buckets: ties go to the lower probe rank
     q = _grid(g, (b, d), dev)
     probes = torch.stack([torch.randperm(c, generator=g)[:nprobe] for _ in range(b)]).to(dev, torch.int32)
     counts = torch.randint(1, 129, (c,), generator=g).to(dev, torch.int32)
+    counts[probes[0, 1]] = 0  # a probed bucket with no live row
+    pv, pp = ivf._bucket_rescore_plain(q, probes, counts, emb3, k)
+    for e3 in (emb3, _unaligned(emb3)):
+        k7 = ivf.K7_LAUNCHES
+        kv, kp = ivf.bucket_rescore(q, probes, counts, e3, k)
+        assert ivf.K7_LAUNCHES == k7 + 1
+        assert torch.equal(kv, pv) and torch.equal(kp, pp)
+    assert bool((pv[0] > fs.NEG_INF).any())
+
+
+@pytest.mark.parametrize("b,nprobe,d,k", [(256, 20, 384, 20), (256, 24, 768, 24), (37, 8, 100, 64),
+                                          (64, 4, 384, 200)])
+def test_k7_bucket_rescore_near_plain_on_random_unit_vectors(dev, b, nprobe, d, k):
+    """On random unit vectors (bf16 rows) K7's values sit within 1e-5 of the plain
+    twin's (another f32 sum order) and its positions differ only among near-ties of
+    the k-th value."""
+    g = torch.Generator().manual_seed(b + nprobe + d + k)
+    c = 64
+    emb3 = fs.normalize_rows(torch.randn((c * 128, d), generator=g)).to(dev, torch.bfloat16).view(c, 128, d)
+    q = fs.normalize_rows(torch.randn((b, d), generator=g)).to(dev)
+    probes = torch.stack([torch.randperm(c, generator=g)[:nprobe] for _ in range(b)]).to(dev, torch.int32)
+    counts = torch.randint(64, 129, (c,), generator=g).to(dev, torch.int32)
     k7 = ivf.K7_LAUNCHES
     kv, kp = ivf.bucket_rescore(q, probes, counts, emb3, k)
     assert ivf.K7_LAUNCHES == k7 + 1
     pv, pp = ivf._bucket_rescore_plain(q, probes, counts, emb3, k)
-    assert torch.equal(kv, pv) and torch.equal(kp, pp)
+    assert float((kv - pv).abs().max()) <= 1e-5
+    for i in range(b):
+        for pos in set(kp[i].tolist()) ^ set(pp[i].tolist()):
+            s = float((emb3[probes[i, pos // 128].long(), pos % 128].float() * q[i]).sum())
+            assert abs(s - float(pv[i, k - 1])) <= 1e-5, (i, pos)
+
+
+def test_k4_k7_launch_plans(dev):
+    """K4's 32-slot body: 1,024 threads and the padded 132 KiB plane, one CTA per SM;
+    K7 takes its ring body for k <= 128 (32-row slabs at d 384 bf16, at least two CTAs
+    per SM, so B 256 is resident at once) and the arg-max body above."""
+    p = ck.launch_plan()
+    assert p == {"threads": 1024, "smem_bytes": 135_168, "ctas_per_sm": 1}, p
+    p = ivf.launch_plan(384, 128, 20)
+    assert p["ring"] == 1 and p["rows_per_slab"] == 32 and p["ctas_per_sm"] >= 2, p
+    assert ivf.launch_plan(768, 128, 128)["ring"] == 1
+    assert ivf.launch_plan(37, 128, 33, torch.float32)["ring"] == 1
+    assert ivf.launch_plan(384, 128, 129)["ring"] == 0
 
 
 def test_chunkmax_scan_cuda_equals_cpu(dev):
@@ -253,25 +299,43 @@ def test_k3_rescore_equal_plain_on_exact_data(dev, q, l2):
 
 
 @pytest.mark.parametrize("mode", ["any", "count"])
-@pytest.mark.parametrize("n_terms", [1, 16, 40, 100])
-def test_k4_chunked_sel_equal_plain(dev, mode, n_terms):
+@pytest.mark.parametrize("n_terms,case", [(1, "random"), (16, "random"), (40, "random"), (100, "random"),
+                                          (16, "serving"), (5, "sentinel"), (32, "repeat")],
+                         ids=["1", "16", "40", "100", "serving", "sentinel", "repeat"])
+def test_k4_chunked_sel_equal_plain(dev, mode, n_terms, case):
+    """Bit-equal to the plain twin at 32 slots (the register network: 1, 5, 16 and 32
+    terms) and at 64 and 128 (the scratch-plane body: 40 and 100 terms); at the serving
+    shape (B 256, 16-term queries), with the sentinel block in the windows (5 terms fill
+    at most 20 of 32 slots), and with one row set in all 32 slots (runs of 32 equal rows:
+    the segmented-sum window at its full 2^seg_log2, and at half of it)."""
     rng = np.random.default_rng(n_terms)
     n_rows, t = 200_000, 128
     sizes = rng.integers(1, 4000, t)
-    rows = np.concatenate([np.sort(rng.choice(n_rows, m, replace=False)) for m in sizes]).astype(np.int32)
+    if case == "repeat":  # every term holds the same 1,000 rows: one chunk each
+        base = np.sort(rng.choice(n_rows, 1000, replace=False))
+        sizes = np.full(t, 1000)
+        rows = np.concatenate([base] * t).astype(np.int32)
+    else:
+        rows = np.concatenate([np.sort(rng.choice(n_rows, m, replace=False)) for m in sizes]).astype(np.int32)
     wn = rng.random(len(rows)).astype(np.float32)
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     pk, cb, cc, qb = build_impact_chunks(rows, wn, offsets, rng.random(t) + 0.5, n_rows)
     pk, cb, cc = (torch.from_numpy(a).to(dev) for a in (pk, cb, cc))
-    tids = torch.from_numpy(np.stack([rng.choice(t, n_terms, replace=False) for _ in range(9)]).astype(np.int32))
+    b = 256 if case == "serving" else 9
+    tids = torch.from_numpy(np.stack([rng.choice(t, n_terms, replace=False) for _ in range(b)]).astype(np.int32))
     slots = ck.slots_for_query(n_terms)
-    win = ck.pack_query_chunks(tids.to(dev), cb, cc, slots, int(cc.max()), pk.shape[0] // PK_CHUNK - 1)
+    dead = pk.shape[0] // PK_CHUNK - 1
+    win = ck.pack_query_chunks(tids.to(dev), cb, cc, slots, int(cc.max()), dead)
+    if case == "sentinel":
+        assert bool((win == dead).any(dim=1).all())
     seg = max(1, int(np.ceil(np.log2(2 * n_terms))))
-    k4 = ck.K4_LAUNCHES
-    kr, kk = ck.chunked_sel(win, pk, qb=qb, seg_log2=seg, mode=mode)
-    assert ck.K4_LAUNCHES == k4 + 1
-    pr, pkeys = ck._chunked_sel_plain(win, pk, qb, seg, mode, 3)
-    assert torch.equal(kk, pkeys) and torch.equal(kr, pr)
+    for sg in (5, 4) if case == "repeat" else (seg,):  # the window equals the runs of 32, or half of them
+        k4 = ck.K4_LAUNCHES
+        kr, kk = ck.chunked_sel(win, pk, qb=qb, seg_log2=sg, mode=mode)
+        assert ck.K4_LAUNCHES == k4 + 1
+        pr, pkeys = ck._chunked_sel_plain(win, pk, qb, sg, mode, 3)
+        assert torch.equal(kk, pkeys) and torch.equal(kr, pr), sg
+        assert bool((pr >= 0).any())
 
 
 def _assert_packed_near(got, ref, scores, k, tn, what):

@@ -17,12 +17,14 @@ kernel reads (`pk_chunks_rev`) is not needed here.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from wax_tpu_torch.index.lex import PK_CHUNK
-from wax_tpu_torch.ops._build import launch, on_cpu
+from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 
-__all__ = ["chunked_candidates_sel", "chunked_sel", "pack_query_chunks", "slots_for_query",
+__all__ = ["chunked_candidates_sel", "chunked_sel", "pack_query_chunks", "slots_for_query", "launch_plan",
            "MIN_SLOTS", "K4_LAUNCHES"]
 
 K4_LAUNCHES = 0
@@ -31,7 +33,6 @@ _SEL_LEVELS = 3
 _I32_MAX = 2**31 - 1
 _I32_MIN = -(2**31)
 _DEAD_RANK = 2**30
-_SMEM_BYTES = 227 * 1024  # shared memory one block may use on an H100
 
 
 def pack_query_chunks(term_ids, chunk_base, chunk_counts, slots: int, max_chunks: int, dead_block: int):
@@ -122,15 +123,25 @@ def chunked_sel(win, pk, *, qb: int, seg_log2: int, mode: str = "any", sel: int 
         raise ValueError(f"bad K4 arguments: slots={slots}, pk {tuple(pk.shape)}, sel={sel}, qb={qb}")
     rows = torch.empty((b, sel * PK_CHUNK), dtype=torch.int32, device=win.device)
     keys = torch.empty_like(rows)
-    # the plane lives in shared memory when it fits, else in a global scratch plane
-    scratch = None if slots * PK_CHUNK * 4 <= _SMEM_BYTES else torch.empty(
-        (b, slots * PK_CHUNK), dtype=torch.int32, device=win.device)
+    # 32 slots: the plane lives in registers and shared memory; 64 and 128 slots merge
+    # in a global scratch plane
+    scratch = None if slots == MIN_SLOTS else torch.empty((b, slots * PK_CHUNK), dtype=torch.int32, device=win.device)
     if b:
         launch("wax_k4_chunked_sel", win.device, win.data_ptr(), pk.data_ptr(), rows.data_ptr(),
                keys.data_ptr(), 0 if scratch is None else scratch.data_ptr(), b, slots, qb, seg_log2,
                int(mode == "count"), sel)
         K4_LAUNCHES += 1
     return rows, keys
+
+
+def launch_plan() -> dict:
+    """How K4's 32-slot body launches on the current CUDA device (builds the kernels;
+    needs a card)."""
+    out = (ctypes.c_int * 3)()
+    err = load_library().wax_k4_plan(ctypes.cast(out, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"wax_k4_plan failed: CUDA error {err}")
+    return dict(zip(("threads", "smem_bytes", "ctas_per_sm"), out))
 
 
 def chunked_candidates_sel(term_ids, pk_chunks, chunk_base, chunk_counts, *, qb: int, max_chunks: int,

@@ -13,12 +13,14 @@ the lowest row. `K7_LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from wax_tpu_torch.ops._build import launch, on_cpu
+from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
-__all__ = ["bucket_rescore", "ivf_rescore", "K7_LAUNCHES"]
+__all__ = ["bucket_rescore", "ivf_rescore", "launch_plan", "K7_LAUNCHES"]
 
 K7_LAUNCHES = 0
 
@@ -72,6 +74,17 @@ def bucket_rescore(q, probes, counts, emb3, k: int):
                int(emb3.dtype == torch.bfloat16))
         K7_LAUNCHES += 1
     return vals, pos
+
+
+def launch_plan(d: int, s: int, k: int, dtype=torch.bfloat16) -> dict:
+    """How K7 launches for rows of d elements, buckets of s rows and this k on the
+    current CUDA device (builds the kernels; needs a card): the ring body (k <= 128)
+    or the arg-max body, the ring's rows per slab, shared memory and CTAs per SM."""
+    out = (ctypes.c_int * 4)()
+    err = load_library().wax_k7_plan(d, s, k, int(dtype == torch.bfloat16), ctypes.cast(out, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"wax_k7_plan failed: CUDA error {err}")
+    return dict(zip(("ring", "rows_per_slab", "smem_bytes", "ctas_per_sm"), out))
 
 
 def ivf_rescore(q, probes, counts, emb3, ids2, k: int):
