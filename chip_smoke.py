@@ -7,8 +7,9 @@ Phases, each printing lines tagged with its name:
 
   device    require CUDA, print the card's name and power limit (nvidia-smi), turn TF32 off
   build     compile wax_tpu_torch/csrc/*.cu (nvcc, sm_90a, one process per source) and
-            print the seconds, each kernel's registers and spills, and K6's tensor-core
-            launch (dynamic shared memory per CTA, CTAs per SM, grid)
+            print the seconds, each kernel's registers and spills, K3's and K5's launch
+            plans at each path's widths (held against `launch_plan`), K4's and K7's, and
+            K6's tensor-core launch (dynamic shared memory per CTA, CTAs per SM, grid)
   kernels   hold kernels K1 (packed-key scan), K2 (exact scan) and K9 (K1's function
             on K9's own tile), all three on 3xTF32 tensor-core scores, against their
             plain torch twins, and K1 against K9: exact-arithmetic data must agree bit
@@ -41,13 +42,17 @@ Phases, each printing lines tagged with its name:
             lanes against the port's plain path on a CPU copy. Then, in a window of its
             own, `bm25_candidates_topk_pallas` on the snapshot without its fused
             forward index: K4, then `rescore_topk(fwd_fused=None)` (K5), equal bit for
-            bit to the fused route (K4, then K3)
+            bit to the fused route (K4, then K3); K3 (L2 64) and K5 (its narrow form,
+            and the wide one) held against their plain twins and timed on the
+            candidates the lane passed them ("engine_1m_l2_64" under K3 in the kernels
+            line; K5's own numbers are its narrow form's here)
   hybrid_1m path (b): `sharded_hybrid_topk` on the one-GPU mesh at the bench's
             hybrid_1m_x384 shape (1,048,576 rows x 384 bf16, B 256, k 10, 16,384
             terms, 16-term queries, budget 3,072, seeds 3/5/7), timed with the term
-            ids perturbed per call; K3, K4 and K5 (narrow and wide forms; and against
-            K3) held against their plain twins on this path's own inputs; the fused ids
-            against the same program on a CPU copy
+            ids perturbed per call; K3 (L2 128), K4 and K5 (narrow and wide forms; and
+            against K3) held against their plain twins on this path's own inputs (K5
+            wide timed as "hybrid_1m_wide"); the fused ids against the same program on a
+            CPU copy
   exact_30k path (c): 30,720 documents of the smoke corpus, encoded by the full-width
             MiniLM, in a HybridSearchEngine with `lex_sharded` and the "auto" budget,
             which keeps this store exact: its sharded BM25 lane resolves to K8 (the
@@ -69,6 +74,7 @@ per-kernel results; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -219,6 +225,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms for a kernel shorter than its wrapper's host time:
+    the `iters` calls are queued behind a sleep kernel of about 10 ms, so CUDA events
+    around them measure the device, not the host's launch rate."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # ------------------------------------------------------------------------------ device
 
 
@@ -262,10 +287,12 @@ def ptxas_functions(nvcc_log: str) -> dict:
 
 def build_phase() -> None:
     """Build the kernels; print each kernel's registers and spills (ptxas), K4's and
-    K7's launches (shared memory per CTA, CTAs per SM) and K6's tensor-core launch:
+    K7's launches (shared memory per CTA, CTAs per SM), K3's and K5's (register groups,
+    candidates per warp and per CTA, grid, CTAs per SM) and K6's tensor-core launch:
     dynamic shared memory per CTA, CTAs per SM, grid."""
     from wax_tpu_torch.ops import _build
     from wax_tpu_torch.ops import bm25_chunked_pallas as ck
+    from wax_tpu_torch.ops import bm25_rescore as rs
     from wax_tpu_torch.ops import chunkmax_scan as cm
     from wax_tpu_torch.ops import ivf_kernel as ivf
 
@@ -293,6 +320,14 @@ def build_phase() -> None:
         check(p["ring"] == 1 and p["ctas_per_sm"] >= 1, f"K7 at d {d}, k {k} does not take the ring body: {p}")
         log("build", f"K7 at d {d} bf16, k {k}: ring body, {p['rows_per_slab']}-row slabs, {p['smem_bytes']} "
             f"bytes of dynamic shared memory per CTA, {p['ctas_per_sm']} CTA(s) per SM")
+    for name, split, width in (("K3 at engine_1m's L2", False, 64), ("K3 at hybrid_1m's L2", False, 128),
+                               ("K5 narrow", True, 64), ("K5 wide at hybrid_1m's L", True, 128)):
+        p = rs.device_plan(split, width, N_QUERIES, 256)
+        check({k: v for k, v in p.items() if k != "ctas_per_sm"} == rs.launch_plan(width, N_QUERIES, 256),
+              f"{name}: the library's plan {p} differs from launch_plan's")
+        log("build", f"{name} {width}, B {N_QUERIES}, F 256: {p['nl']} register groups of {32 // p['cpw']} lanes, "
+            f"{p['cpw']} candidate(s) a warp, {p['cands_per_cta']} candidates per CTA of {p['threads']} threads, "
+            f"grid {p['grid_x']} x {p['grid_y']}, {p['ctas_per_sm']} CTA(s) per SM")
     for b in (N_QUERIES, 128):
         p = cm.mma_plan(b, N_1M)
         log("build", f"K6 tensor-core path at B {b}, N {N_1M}: {p['queries_per_cta']} queries per CTA, "
@@ -832,13 +867,31 @@ def serve_engine_batch(engine, texts, qv, mode, timings=None):
     return vv, vf, bv, bf, term_ids, qv
 
 
-def engine_1m_phase(dev, seed: int) -> dict:
+@contextlib.contextmanager
+def first_call_args(module, name: str, seen: dict):
+    """Within the block, record the arguments of the first call of `module.name` in
+    seen[name] (the call itself runs unchanged)."""
+    fn = getattr(module, name)
+
+    def recorded(*args):
+        seen.setdefault(name, args)
+        return fn(*args)
+
+    setattr(module, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def engine_1m_phase(dev, seed: int, results: dict) -> dict:
     """Path (a): the engine at 1,048,576 documents; returns this phase's launches."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from wax_tpu_torch.ops import bm25_rescore as rs
     from wax_tpu_torch.ops.bm25_candidates import bm25_candidates_topk
     from wax_tpu_torch.ops.bm25_candidates_pallas import bm25_candidates_topk_pallas
     from wax_tpu_torch.ops.flat_scan import flat_scan_topk, normalize_rows
@@ -966,11 +1019,13 @@ def engine_1m_phase(dev, seed: int) -> dict:
                                   lex.pk_max_chunks, lex.pk_qb, t)
     log("engine_1m", f"K4 on the 4 batches' own chunk windows ({slots} slots, the last batch's) equal to its "
         f"plain twin in `any` and `count` modes")
-    via_k3 = [bm25_candidates_topk_pallas(t, lex, FETCH_K, mode) for t, mode in zip(tids4, modes)]
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    via_k5 = [bm25_candidates_topk_pallas(t, split, FETCH_K, mode) for t, mode in zip(tids4, modes)]
-    torch.cuda.synchronize()
+    seen: dict = {}  # the first batch's K3 and K5 arguments, as the lane passes them
+    with first_call_args(rs, "rescore_fused", seen), first_call_args(rs, "rescore_split", seen):
+        via_k3 = [bm25_candidates_topk_pallas(t, lex, FETCH_K, mode) for t, mode in zip(tids4, modes)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        via_k5 = [bm25_candidates_topk_pallas(t, split, FETCH_K, mode) for t, mode in zip(tids4, modes)]
+        torch.cuda.synchronize()
     k5_window = launch_counts()
     check(k5_window["K5"] > 0 and k5_window["K3"] == 0, f"engine_1m: rescore_topk(fwd_fused=None) launched "
           f"K5 {k5_window['K5']} and K3 {k5_window['K3']} times")
@@ -979,6 +1034,14 @@ def engine_1m_phase(dev, seed: int) -> dict:
     launches["K5"] = k5_window["K5"]
     log("engine_1m", f"bm25_candidates_topk_pallas without fwd_fused (K4 + K5) equal to the fused route (K4 + K3) "
         f"for 4 x 256 queries (scores and ids bit for bit); launches {k5_window}")
+    # (v) K3 and K5 on the candidates the lane passed them (batch 0)
+    fused, cand, tq, iq = seen["rescore_fused"]
+    ft, fw, cand5, tq5, iq5, w5 = seen["rescore_split"]
+    check(torch.equal(cand, cand5) and torch.equal(tq, tq5) and torch.equal(iq, iq5) and w5 == 64,
+          f"engine_1m: K5 did not take the narrow form (width {w5}) on K3's candidates")
+    rc = _k3_k5_cases("engine_1m", fused, ft, fw, cand, tq, iq, lex.fwd_width)
+    results.setdefault("K3", {})["engine_1m_l2_64"] = rc["K3"]
+    results.setdefault("K5", {}).update(rc["K5"][w5])
     log("engine_1m", f"phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
 
@@ -1069,86 +1132,124 @@ def _k4_case(what, pk, chunk_base, chunk_counts, max_chunks, qb, tids):
     return win, seg, slots, (pr, pkk)
 
 
-def _k3_k4_cases(lex, tids, results):
-    """K4 and K3 against their plain twins on this path's own inputs: the chunk
-    windows of the batch's queries, and the candidates K4 ranks for the rescore."""
+def rescore_rows(pr, pkk, f: int = 256):
+    """The rescore's candidates as the lane builds them from K4's output (rows, keys):
+    the top-f rows by key, row-sorted, -1 (dead) last."""
     import torch
 
+    from wax_tpu_torch.ops.topk import stable_top_k
+
+    _, cpos = stable_top_k(pkk, f)
+    crows = torch.gather(pr, 1, cpos)
+    big = 2**30
+    rows_sorted, _ = torch.sort(torch.where(crows < 0, big, crows.long()), dim=-1)
+    return torch.where(rows_sorted >= big, -1, rows_sorted).to(torch.int32).contiguous()
+
+
+def rescore_read_bytes(tids_rows, cand, tids_q, width: int):
+    """(bytes K3/K5 read for these candidates: every tid lane of each live row and the
+    32-byte sectors of its matched weights; live tid lanes a live row)."""
+    import torch
+
+    rows = tids_rows[cand.clamp(min=0).long()][..., :width]  # [B, F, width]
+    live_c = cand >= 0
+    hit = ((rows[..., None] == tids_q[:, None, None, :]) & (tids_q >= 0)[:, None, None, :]).any(-1)
+    hit &= (rows >= 0) & live_c[..., None]
+    sectors = int(hit.reshape(*hit.shape[:2], -1, 8).any(-1).sum())
+    n_live = int(live_c.sum())
+    lanes = float(((rows >= 0) & live_c[..., None]).sum()) / max(n_live, 1)
+    return n_live * width * 4 + sectors * 32, lanes
+
+
+def _k4_hybrid_case(lex, tids, results):
+    """K4 against its plain twin on this path's own chunk windows, timed; returns the
+    rescore's inputs as the lane builds them from K4's output: (the candidates K4
+    ranks, row-sorted; query slots; their idf)."""
     from wax_tpu_torch.index.lex import PK_CHUNK
     from wax_tpu_torch.ops import bm25_chunked_pallas as ck
     from wax_tpu_torch.ops import bm25_rescore as rs
-    from wax_tpu_torch.ops.topk import stable_top_k
 
     b, q = tids.shape
     pk = lex.pk_chunks[0]
     win, seg, slots, (pr, pkk) = _k4_case("hybrid_1m", pk, lex.chunk_base[0], lex.chunk_counts[0],
                                           lex.pk_max_chunks, lex.pk_qb, tids)
-    # the rescore's input, as the lane builds it: top-256 candidates by key, row-sorted
-    _, cpos = stable_top_k(pkk, 256)
-    crows = torch.gather(pr, 1, cpos)
-    big = 2**30
-    rows_sorted, _ = torch.sort(torch.where(crows < 0, big, crows.long()), dim=-1)
-    rows_sorted = torch.where(rows_sorted >= big, -1, rows_sorted).to(torch.int32).contiguous()
+    rows_sorted = rescore_rows(pr, pkk, 256)
     tids_q, idf_q = rs._query_planes(tids, lex.idf[0])
     tids_q, idf_q = tids_q.contiguous(), idf_q.contiguous()
-    fused = lex.fwd_fused[0]
-    (ks, kc), (ps, pc) = rs.rescore_fused(fused, rows_sorted, tids_q, idf_q), \
-        rs._rescore_fused_plain(fused, rows_sorted, tids_q, idf_q)
-    torch.cuda.synchronize()
-    rel = float(((ks - ps).abs() / ps.abs().clamp(min=1e-30)).max())
-    check(torch.equal(kc, pc) and torch.equal(ks, ps), f"K3 differs from its plain twin (max relative {rel:.3g})")
-    # exact-arithmetic weights and idf (multiples of 1/8 and 1/4): bit for bit
-    l2 = fused.shape[1] // 2
+    t4 = (cuda_ms(lambda: ck.chunked_sel(win, pk, qb=lex.pk_qb, seg_log2=seg, mode="any")),
+          cuda_ms(lambda: ck._chunked_sel_plain(win, pk, lex.pk_qb, seg, "any", 3)))
+    n = slots * PK_CHUNK
+    stages = sum(1 + (run.bit_length() - 1) for run in (PK_CHUNK << i for i in range(slots.bit_length() - 1)))
+    b4 = bound(b * n * 4 + b * slots * 4 + 2 * b * 3 * PK_CHUNK * 4, b * stages * (n // 2), "fp32")
+    results["K4"] = dict(max_abs_err=0.0, ms=t4[0], plain_ms=t4[1], library_ms=None, bound_ms=b4[0], bound_by=b4[1])
+    log("hybrid_1m", f"K4 [{b} queries x {slots} slots x {PK_CHUNK}] equal to its plain twin in `any` and `count` "
+        f"modes; {t4[0]:.4f} ms, plain {t4[1]:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]}, {stages} merge stages)")
+    return rows_sorted, tids_q, idf_q
+
+
+def _k3_k5_cases(phase, fused, ft, fw, cand, tids_q, idf_q, fwd_width: int) -> dict:
+    """K3 (fused rows) and K5 (both forms: the first 64 lanes and every lane) against
+    their plain twins on one path's own rescore inputs, on the path's weights and on
+    exact-arithmetic ones (k/8, idf k/4): bit for bit; K5 also against K3 where it reads
+    the same lanes. Times each with its plain twin, bound (every lane of every gathered
+    row read once) and the bytes it reads; the kernels are timed queued (`queued_ms`):
+    they are shorter than their wrappers' host time. Returns {"K3": entry, "K5": {width: entry},
+    "K5 path width": the form exact_rescore takes here}."""
+    import torch
+
+    from wax_tpu_torch.ops import bm25_rescore as rs
+
+    (b, f), q, l2, l = cand.shape, tids_q.shape[1], fused.shape[1] // 2, ft.shape[1]
     tid_lanes = fused[:, :l2]
     w_exact = torch.where(tid_lanes >= 0, ((tid_lanes % 8) + 1).float() / 8.0, 0.0)
     fused_exact = torch.cat([tid_lanes, w_exact.view(torch.int32)], dim=1).contiguous()
     idf_exact = torch.where(tids_q >= 0, ((tids_q % 4) + 1).float() / 4.0, 0.0).contiguous()
-    (es, ec), (xs, xc) = rs.rescore_fused(fused_exact, rows_sorted, tids_q, idf_exact), \
-        rs._rescore_fused_plain(fused_exact, rows_sorted, tids_q, idf_exact)
-    torch.cuda.synchronize()
-    check(torch.equal(es, xs) and torch.equal(ec, xc), "K3 differs from its plain twin on exact-arithmetic data")
-    # K5 on the same candidates, over the two separate forward arrays: both forms against
-    # the plain twin, on the path's weights and on exact-arithmetic ones; the wide form
-    # (every lane) also bit-equal to K3, which reads the same rows fused
-    ft, fw = lex.fwd_tids[0], lex.fwd_wnorm[0]
+    want3 = {}
+    for data, fz, idf in (("path", fused, idf_q), ("exact-arithmetic", fused_exact, idf_exact)):
+        (ks, kc), (ps, pc) = rs.rescore_fused(fz, cand, tids_q, idf), rs._rescore_fused_plain(fz, cand, tids_q, idf)
+        torch.cuda.synchronize()
+        rel = float(((ks - ps).abs() / ps.abs().clamp(min=1e-30)).max())
+        check(torch.equal(kc, pc) and torch.equal(ks, ps),
+              f"{phase}: K3 differs from its plain twin on the {data} weights (max relative {rel:.3g})")
+        want3[data] = (ks, kc)
     fw_exact = torch.where(ft >= 0, ((ft % 8) + 1).float() / 8.0, 0.0).contiguous()
-    widths = (64, ft.shape[1])
+    tail_dead = l <= l2 or bool((ft[:, l2:] < 0).all())  # K5 over every lane reads K3's lanes
+    widths = (64, l) if l > 64 else (l,)
     for w5 in widths:
-        for weights, idf5, want in ((fw, idf_q, (ks, kc)), (fw_exact, idf_exact, (es, ec))):
-            got, plain = rs.rescore_split(ft, weights, rows_sorted, tids_q, idf5, w5), \
-                rs._rescore_split_plain(ft, weights, rows_sorted, tids_q, idf5, w5)
+        for data, weights, idf in (("path", fw, idf_q), ("exact-arithmetic", fw_exact, idf_exact)):
+            got, plain = rs.rescore_split(ft, weights, cand, tids_q, idf, w5), \
+                rs._rescore_split_plain(ft, weights, cand, tids_q, idf, w5)
             torch.cuda.synchronize()
             check(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
-                  f"K5 (width {w5}) differs from its plain twin")
-            if w5 == ft.shape[1]:
-                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "K5 differs from K3")
-    f = rows_sorted.shape[1]
+                  f"{phase}: K5 (width {w5}) differs from its plain twin on the {data} weights")
+            if (w5 == l and tail_dead) or w5 == l2:
+                check(all(torch.equal(x, y) for x, y in zip(got, want3[data])), f"{phase}: K5 (width {w5}) differs "
+                      f"from K3 on the {data} weights")
     # the form exact_rescore takes on this index (narrow: a real width <= 64)
-    w5 = 64 if 0 < lex.fwd_width <= 64 and ft.shape[1] >= 128 and f % 2 == 0 else ft.shape[1]
-    t5 = {w: (cuda_ms(lambda: rs.rescore_split(ft, fw, rows_sorted, tids_q, idf_q, w)),
-              cuda_ms(lambda: rs._rescore_split_plain(ft, fw, rows_sorted, tids_q, idf_q, w))) for w in widths}
-    b5 = {w: bound(b * f * 2 * w * 4 + b * f * 4 + b * q * 8 + b * f * 8, 2 * b * f * w * q, "fp32") for w in widths}
-    results["K5"] = dict(max_abs_err=0.0, ms=t5[w5][0], plain_ms=t5[w5][1], library_ms=None, bound_ms=b5[w5][0],
-                         bound_by=b5[w5][1])
-    log("hybrid_1m", f"K5 [{b} x {f} candidates, L={ft.shape[1]}, fwd_width={lex.fwd_width}, Q={q}] bit-equal to "
-        f"its plain twin in both forms on this path's weights and on exact-arithmetic ones, and (every lane) to K3; "
-        + "; ".join(f"width {w}: {t5[w][0]:.4f} ms, plain {t5[w][1]:.4f} ms, bound {b5[w][0]:.4f} ms ({b5[w][1]})"
-                    for w in widths) + f"; exact_rescore takes width {w5}")
-    t4 = (cuda_ms(lambda: ck.chunked_sel(win, pk, qb=lex.pk_qb, seg_log2=seg, mode="any")),
-          cuda_ms(lambda: ck._chunked_sel_plain(win, pk, lex.pk_qb, seg, "any", 3)))
-    t3 = (cuda_ms(lambda: rs.rescore_fused(fused, rows_sorted, tids_q, idf_q)),
-          cuda_ms(lambda: rs._rescore_fused_plain(fused, rows_sorted, tids_q, idf_q)))
-    n = slots * PK_CHUNK
-    stages = sum(1 + (run.bit_length() - 1) for run in (PK_CHUNK << i for i in range(slots.bit_length() - 1)))
-    b4 = bound(b * n * 4 + b * slots * 4 + 2 * b * 3 * PK_CHUNK * 4, b * stages * (n // 2), "fp32")
-    b3 = bound(b * f * 2 * l2 * 4 + b * f * 4 + b * q * 8 + b * f * 8, 2 * b * f * l2 * q, "fp32")
-    results["K4"] = dict(max_abs_err=0.0, ms=t4[0], plain_ms=t4[1], library_ms=None, bound_ms=b4[0], bound_by=b4[1])
-    results["K3"] = dict(max_abs_err=float((ks - ps).abs().max()), ms=t3[0], plain_ms=t3[1], library_ms=None,
-                         bound_ms=b3[0], bound_by=b3[1])
-    log("hybrid_1m", f"K4 [{b} queries x {slots} slots x {PK_CHUNK}] equal to its plain twin in `any` and `count` "
-        f"modes; {t4[0]:.4f} ms, plain {t4[1]:.4f} ms, bound {b4[0]:.4f} ms ({b4[1]}, {stages} merge stages)")
-    log("hybrid_1m", f"K3 [{b} x {f} candidates, L2={l2}, Q={q}] bit-equal to its plain twin on this path's "
-        f"weights and on exact-arithmetic ones; {t3[0]:.4f} ms, plain {t3[1]:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]})")
+    path_w5 = 64 if 0 < fwd_width <= 64 and l >= 128 and f % 2 == 0 else l
+
+    def entry(run, plain, width, tids_rows, err=0.0):
+        ms, plain_ms = queued_ms(run), cuda_ms(plain)
+        bd = bound(b * f * 2 * width * 4 + b * f * 4 + b * q * 8 + b * f * 8, 2 * b * f * width * q, "fp32")
+        read, lanes = rescore_read_bytes(tids_rows, cand, tids_q, width)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bd[0], bound_by=bd[1],
+                    read_mb=read / 1e6, live_lanes=lanes, read_bound_ms=read / HBM_BYTES_PER_S * 1e3)
+
+    out = {"K3": entry(lambda: rs.rescore_fused(fused, cand, tids_q, idf_q),
+                       lambda: rs._rescore_fused_plain(fused, cand, tids_q, idf_q), l2, tid_lanes),
+           "K5": {w: entry(lambda: rs.rescore_split(ft, fw, cand, tids_q, idf_q, w),
+                           lambda: rs._rescore_split_plain(ft, fw, cand, tids_q, idf_q, w), w, ft) for w in widths},
+           "K5 path width": path_w5}
+    for name, e, width in [("K3", out["K3"], l2)] + [("K5", out["K5"][w], w) for w in widths]:
+        plan = rs.launch_plan(width, b, f)
+        log(phase, f"{name} [{b} x {f} candidates, {'L2' if name == 'K3' else 'width'} {width}, Q {q}; plan: "
+            f"{plan['nl']} register groups, {plan['cpw']} candidate(s) a warp, grid {plan['grid_x']} x "
+            f"{plan['grid_y']}] bit-equal to its plain twin on the path's and exact-arithmetic weights; "
+            f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}); "
+            f"reads {e['read_mb']:.2f} MB ({e['live_lanes']:.1f} live tid lanes a live row; "
+            f"{e['read_bound_ms']:.4f} ms at 3.35 TB/s)")
+    log(phase, f"K5 wide equal to K3 where it reads K3's lanes; exact_rescore takes width {path_w5} here")
+    return out
 
 
 def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) -> dict:
@@ -1212,7 +1313,11 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) 
         f"{statistics.median(lane['dense']):.3f} bm25 (K4+K3)={statistics.median(lane['bm25']):.3f}; "
         f"launches {launches}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     device_profile("hybrid_1m", lambda: sh.sharded_hybrid_topk(q0, tids0, dense, lex, k, mesh))
-    _k3_k4_cases(lex, tids0, results)
+    rows_sorted, tids_q, idf_q = _k4_hybrid_case(lex, tids0, results)
+    rc = _k3_k5_cases("hybrid_1m", lex.fwd_fused[0], lex.fwd_tids[0], lex.fwd_wnorm[0], rows_sorted, tids_q, idf_q,
+                      lex.fwd_width)
+    results.setdefault("K3", {}).update(rc["K3"])
+    results.setdefault("K5", {})["hybrid_1m_wide"] = rc["K5"][rc["K5 path width"]]
 
     # the fused ids against the same program through the plain versions (CPU copy)
     nq = 32
@@ -1457,7 +1562,7 @@ def main(argv=None) -> int:
     import torch
 
     torch.cuda.empty_cache()
-    path_a = engine_1m_phase(dev, args.seed)
+    path_a = engine_1m_phase(dev, args.seed, results)
     torch.cuda.empty_cache()
     path_b = hybrid_1m_phase(dev, results)
     torch.cuda.empty_cache()
@@ -1486,7 +1591,8 @@ def main(argv=None) -> int:
             "name": f"{kern} {name}", "route": "cuda", "source": f"wax_tpu_torch/csrc/{src}",
             "replaces": fn_line, "launches": launches[kern], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], **{key: r[key] for key in ("x768", "rows_10240") if key in r},
+            "library_ms": r["library_ms"],
+            **{key: r[key] for key in ("x768", "rows_10240", "engine_1m_l2_64", "hybrid_1m_wide") if key in r},
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -219,8 +219,9 @@ def print_sass(label: str, lib: Path, nvcc: str, fragments=("k4_", "k7_"), top: 
               + ", ".join(f"{op} {n}" for op, n in c.most_common(top)), flush=True)
 
 
-def build_all(sources: dict, out: Path, fname: str, nvcc: str) -> dict:
-    """{name: (text, header dir)} -> {name: ctypes library}; prints ptxas per variant."""
+def build_all(sources: dict, out: Path, fname: str, nvcc: str, fragments=("k4_", "k7_")) -> dict:
+    """{name: (text, header dir)} -> {name: ctypes library}; prints ptxas per variant for
+    the kernels whose names hold one of `fragments`."""
     jobs = {}
     for name, (text, hdr_dir) in sources.items():
         d = out / name
@@ -236,9 +237,9 @@ def build_all(sources: dict, out: Path, fname: str, nvcc: str) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        print_ptxas(f"{fname} {name}", log)
+        print_ptxas(f"{fname} {name}", log, fragments)
         if SASS:
-            print_sass(f"{fname} {name}", d / "lib.so", nvcc)
+            print_sass(f"{fname} {name}", d / "lib.so", nvcc, fragments)
         libs[name] = ctypes.CDLL(str(d / "lib.so"))
     return libs
 

@@ -273,29 +273,109 @@ def test_chunkmax_scan_cuda_equals_cpu(dev):
             assert torch.equal(w, gt.cpu()), k
 
 
-@pytest.mark.parametrize("q,l2", [(16, 64), (1, 64), (128, 192)])
+def _fwd_rows(g, n, l, width, layout, vocab):
+    """n forward rows of l lanes holding each term at most once in their first `width`
+    lanes: "holes" (a random term per lane, 30% of lanes -1 anywhere) or "packed"
+    (tid-ascending live lanes first, then -1 pads, lengths 0..width, as the snapshot
+    builders lay them out)."""
+    tids = torch.full((n, l), -1, dtype=torch.int32)
+    tids[:, :width] = torch.argsort(torch.rand((n, vocab), generator=g), dim=1)[:, :width].to(torch.int32)
+    if layout == "holes":
+        tids[:, :width][torch.rand((n, width), generator=g) < 0.3] = -1
+    else:
+        lens = torch.randint(0, width + 1, (n, 1), generator=g)
+        live = torch.arange(width)[None, :] < lens
+        tids[:, :width] = torch.where(live, torch.sort(tids[:, :width], dim=1).values, -1)
+    return tids
+
+
+def _query_slots(g, b, q, vocab, dev):
+    """[B, Q] slots (-1 pads) and idf k/4 > 0; every query of >= 2 slots repeats its
+    first term in its last slot."""
+    tq = torch.randint(-1, vocab, (b, q), generator=g, dtype=torch.int32)
+    if q >= 2:
+        tq[:, -1] = tq[:, 0]
+    iq = torch.where(tq >= 0, torch.randint(1, 5, (b, q), generator=g) / 4.0, 0.0).float()
+    return tq.to(dev), iq.to(dev)
+
+
+def _assert_k3_equal_plain(fused, cand, tq, iq):
+    k3 = rs.K3_LAUNCHES
+    ks, kc = rs.rescore_fused(fused, cand, tq, iq)
+    assert rs.K3_LAUNCHES == k3 + (1 if cand.numel() else 0)
+    ps, pc = rs._rescore_fused_plain(fused, cand, tq, iq)
+    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    return ks, kc
+
+
+_K3_CASES = [(16, 64), (1, 64), (128, 192)] + [(q, l2) for l2 in (64, 128, 256, 512) for q in (1, 16, 33, 128)
+                                               if (q, l2) != (16, 64) and (q, l2) != (1, 64)]
+
+
+@pytest.mark.parametrize("q,l2", _K3_CASES)
 def test_k3_rescore_equal_plain_on_exact_data(dev, q, l2):
+    """K3 bit-equal to its plain twin on exact-arithmetic and random weights, at every
+    register width (L2 64-512) and Q 1-128: 37 queries x 256 candidates on rows with
+    holes, then one query of F 1, 7, 256 and 257 candidates on holey and on left-packed
+    rows, queries that repeat a term."""
     g = torch.Generator().manual_seed(q + l2)
     n, b, f = 3000, 37, 256
+    vocab = 400 if l2 <= 400 else 1024
     # each row holds a term once, as a forward index does
-    tids = torch.argsort(torch.rand((n, 400), generator=g), dim=1)[:, :l2].to(torch.int32)
+    tids = torch.argsort(torch.rand((n, vocab), generator=g), dim=1)[:, :l2].to(torch.int32)
     tids[torch.rand((n, l2), generator=g) < 0.3] = -1
     w_real = torch.rand((n, l2), generator=g)  # random weights: bit-equal too (slot order)
     w = (torch.randint(1, 9, (n, l2), generator=g) / 8.0).float()
     fused = torch.cat([tids, w.view(torch.int32)], dim=1).to(dev)
     cand = torch.randint(-1, n, (b, f), generator=g, dtype=torch.int32).to(dev)
-    tq = torch.randint(-1, 400, (b, q), generator=g, dtype=torch.int32).to(dev)
+    tq = torch.randint(-1, vocab, (b, q), generator=g, dtype=torch.int32).to(dev)
     iq = torch.where(tq >= 0, (torch.randint(1, 5, (b, q), generator=g) / 4.0).to(dev), 0.0).float()
-    k3 = rs.K3_LAUNCHES
-    ks, kc = rs.rescore_fused(fused, cand, tq, iq)
-    assert rs.K3_LAUNCHES == k3 + 1
-    ps, pc = rs._rescore_fused_plain(fused, cand, tq, iq)
-    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    _assert_k3_equal_plain(fused, cand, tq, iq)
     fused_real = torch.cat([tids, w_real.view(torch.int32)], dim=1).to(dev)
     iq_real = torch.where(tq >= 0, torch.rand((b, q), generator=g).to(dev) + 0.5, 0.0).float()
-    ks, kc = rs.rescore_fused(fused_real, cand, tq, iq_real)
-    ps, pc = rs._rescore_fused_plain(fused_real, cand, tq, iq_real)
-    assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    _assert_k3_equal_plain(fused_real, cand, tq, iq_real)
+    for layout in ("holes", "packed"):
+        lt = _fwd_rows(g, n, l2, l2, layout, vocab)
+        lw = torch.where(lt >= 0, torch.rand((n, l2), generator=g) + 0.01, 0.0).float()
+        lf = torch.cat([lt, lw.view(torch.int32)], dim=1).to(dev)
+        for f1 in (1, 7, 256, 257):
+            c1 = torch.randint(-1, n, (1, f1), generator=g, dtype=torch.int32).to(dev)
+            t1, i1 = _query_slots(g, 1, q, vocab, dev)
+            _assert_k3_equal_plain(lf, c1, t1, i1)
+        # every candidate holds every live slot's term: the counts reach Q
+        t1 = lt[c1[0, 1:2].clamp(min=0).cpu().long(), :q].to(dev)
+        _assert_k3_equal_plain(lf, c1, t1.contiguous(), torch.where(t1 >= 0, 0.75, 0.0).float().contiguous())
+
+
+def test_k3_k5_every_plan_instance(dev):
+    """Every launch instance `wax_k3k5_plan` can choose (K3 at L2 64-512, K5 narrow and
+    wide at L 32-512) agrees with the plain mirror `launch_plan` and with its plain twin
+    bit for bit, on left-packed rows with random weights and 16-slot queries; F 75 is
+    no multiple of the candidates per CTA."""
+    g = torch.Generator().manual_seed(9)
+    n, b, f, q, vocab = 2000, 5, 75, 16, 1024
+    seen = set()
+    for split, widths in ((False, range(64, 513, 64)), (True, range(32, 513, 32))):
+        for l in widths:
+            for width in ((64, l) if split and l >= 64 else (l,)):
+                plan = rs.device_plan(split, width, b, f)
+                assert {k: v for k, v in plan.items() if k != "ctas_per_sm"} == rs.launch_plan(width, b, f)
+                assert plan["ctas_per_sm"] >= 1 and plan["nl"] * 32 // plan["cpw"] >= width
+                seen.add((split, plan["nl"], plan["cpw"]))
+                tids = _fwd_rows(g, n, l, width, "packed", vocab)
+                w = torch.where(tids >= 0, torch.rand((n, l), generator=g) + 0.01, 0.0).float()
+                w[tids[:, 0] == 5] = 0.0  # a tombstoned row: live tids, weights 0
+                cand = torch.randint(-1, n, (b, f), generator=g, dtype=torch.int32).to(dev)
+                tq, iq = _query_slots(g, b, q, vocab, dev)
+                if split:
+                    ft, fw = tids.to(dev), w.to(dev)
+                    got = rs.rescore_split(ft, fw, cand, tq, iq, width)
+                    want = rs._rescore_split_plain(ft, fw, cand, tq, iq, width)
+                    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (l, width)
+                else:
+                    _assert_k3_equal_plain(torch.cat([tids, w.view(torch.int32)], dim=1).to(dev), cand, tq, iq)
+    assert seen == {(False, 4, 2), (False, 8, 2), (False, 8, 1), (False, 16, 1), (True, 2, 2), (True, 4, 2),
+                    (True, 8, 2), (True, 8, 1), (True, 16, 1)}
 
 
 @pytest.mark.parametrize("mode", ["any", "count"])
@@ -379,21 +459,31 @@ def test_k9_equals_plain_on_exact_data_and_k1_on_any(dev, dtype, b, k, n, tn, d)
     _assert_packed_near(got, fs.packed_sel_tiles(qr, er, bias, k, tn), scores, k, tn, "K9 vs K1")
 
 
-def _split_forward(g, n, l, width):
+def _split_forward(g, n, l, width, vocab=400):
     """A forward index of n rows x l lanes holding each term once in its first `width`
     lanes; weights k/8 > 0."""
     tids = torch.full((n, l), -1, dtype=torch.int32)
-    tids[:, :width] = torch.argsort(torch.rand((n, 400), generator=g), dim=1)[:, :width].to(torch.int32)
+    tids[:, :width] = torch.argsort(torch.rand((n, vocab), generator=g), dim=1)[:, :width].to(torch.int32)
     tids[:, :width][torch.rand((n, width), generator=g) < 0.3] = -1
     w = torch.where(tids >= 0, torch.randint(1, 9, (n, l), generator=g) / 8.0, 0.0).float()
     return tids, w
 
 
-@pytest.mark.parametrize("q,l,width", [(16, 128, 64), (1, 128, 128), (128, 384, 384), (16, 512, 64)])
+_K5_CASES = [(16, 128, 64), (1, 128, 128), (128, 384, 384), (16, 512, 64)] + [
+    (q, l, width) for l in (64, 128, 256, 512) for width in sorted({64, l}) for q in (1, 16, 33, 128)
+    if (q, l, width) not in ((16, 128, 64), (1, 128, 128), (16, 512, 64))]
+
+
+@pytest.mark.parametrize("q,l,width", _K5_CASES)
 def test_k5_rescore_equal_plain_and_k3(dev, q, l, width):
+    """K5 in its narrow (64 lanes) and wide forms bit-equal to its plain twin on
+    exact-arithmetic and random weights, and to K3 on the same rows; then one query of
+    F 1, 7, 256 and 257 on holey and left-packed rows with tombstoned rows (live tids,
+    weights 0), queries that repeat a term."""
     g = torch.Generator().manual_seed(q + l + width)
     n, b, f = 3000, 37, 256
-    tids, w = _split_forward(g, n, l, min(width, 200))
+    vocab = 400 if l <= 400 else 1024
+    tids, w = _split_forward(g, n, l, min(width, 200), vocab)
     cand = torch.randint(-1, n, (b, f), generator=g, dtype=torch.int32).to(dev)
     tq = torch.randint(-1, 400, (b, q), generator=g, dtype=torch.int32).to(dev)
     iq = torch.where(tq >= 0, (torch.randint(1, 5, (b, q), generator=g) / 4.0).to(dev), 0.0).float()
@@ -403,14 +493,25 @@ def test_k5_rescore_equal_plain_and_k3(dev, q, l, width):
     assert rs.K5_LAUNCHES == k5 + 1
     ps, pc = rs._rescore_split_plain(ft, fw, cand, tq, iq, width)
     assert torch.equal(kc, pc) and torch.equal(ks, ps)
-    fused = torch.cat([tids, w.view(torch.int32)], dim=1).to(dev)  # K3's input, same data
-    fs3, fc3 = rs.rescore_fused(fused, cand, tq, iq)
-    assert torch.equal(ks, fs3) and torch.equal(kc, fc3)
+    if l % 64 == 0:
+        fused = torch.cat([tids, w.view(torch.int32)], dim=1).to(dev)  # K3's input, same data
+        fs3, fc3 = rs.rescore_fused(fused, cand, tq, iq)
+        assert torch.equal(ks, fs3) and torch.equal(kc, fc3)
     wr = torch.where(tids >= 0, torch.rand((n, l), generator=g) + 0.01, 0.0).float().to(dev)
     iqr = torch.where(tq >= 0, torch.rand((b, q), generator=g).to(dev) + 0.5, 0.0).float()
     (ks, kc), (ps, pc) = rs.rescore_split(ft, wr, cand, tq, iqr, width), \
         rs._rescore_split_plain(ft, wr, cand, tq, iqr, width)
     assert torch.equal(kc, pc) and torch.equal(ks, ps)
+    for layout in ("holes", "packed"):
+        lt = _fwd_rows(g, n, l, width, layout, vocab)
+        lw = torch.where(lt >= 0, torch.rand((n, l), generator=g) + 0.01, 0.0).float()
+        lw[torch.rand(n, generator=g) < 0.1] = 0.0  # tombstoned rows
+        lt, lw = lt.to(dev), lw.to(dev)
+        for f1 in (1, 7, 256, 257):
+            c1 = torch.randint(-1, n, (1, f1), generator=g, dtype=torch.int32).to(dev)
+            t1, i1 = _query_slots(g, 1, q, vocab, dev)
+            got, want = rs.rescore_split(lt, lw, c1, t1, i1, width), rs._rescore_split_plain(lt, lw, c1, t1, i1, width)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (layout, f1)
 
 
 def _postings(rng, n_rows, sizes, exact):

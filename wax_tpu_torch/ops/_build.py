@@ -49,6 +49,7 @@ _SIGNATURES = {
 # entries that launch nothing: (argument types); each returns a cudaError_t.
 _QUERIES = {
     "wax_k4_plan": [_P],
+    "wax_k3k5_plan": [_I, _I, _I, _I, _P],
     "wax_k6_mma_plan": [_I, _I, _P],
     "wax_k7_plan": [_I, _I, _I, _I, _P],
     "wax_flat_scan_plan": [_I, _I, _I, _I, _I, _I, _I, _P],

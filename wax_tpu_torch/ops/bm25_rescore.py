@@ -18,24 +18,62 @@ list, which no budget truncates.
     `exact_rescore` and `rescore_topk(fwd_fused=None)`.
   * `rescore_topk`: the stable top-k over rescored candidates, ties to the lowest row.
 
-Both kernels add the query slots in slot order, so on the same forward index K5 and
-K3 agree bit for bit.
+Both kernels are one templated body (`rescore<SPLIT, NL, CPW>`) and add the query
+slots in slot order, so on the same forward index K5 and K3 agree bit for bit.
+`launch_plan` is the plain mirror of the C launch choice (`wax_k3k5_plan`, read on a
+card by `device_plan`): register groups a thread, candidates per warp and per CTA, grid.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from wax_tpu_torch.ops._build import launch, on_cpu
+from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
 __all__ = ["exact_rescore", "exact_rescore_fused", "rescore_fused", "rescore_split", "rescore_topk",
-           "K3_LAUNCHES", "K5_LAUNCHES"]
+           "launch_plan", "device_plan", "K3_LAUNCHES", "K5_LAUNCHES"]
 
 K3_LAUNCHES = 0
 K5_LAUNCHES = 0
 _QMAX = 128
 _L2MAX = 512  # the forward width cap (FWD_WIDTH_CAP); K3 holds a row in registers
 _NARROW = 64  # K5's narrow form: the first 64 lanes, two candidates per warp
+_CTA_CANDS = 64  # csrc/bm25_rescore.cu CTA_CANDS: candidates of one query per CTA
+_CTA_WARPS = 8  # csrc/bm25_rescore.cu CTA_WARPS
+_CPW2_MAX = 128  # csrc/bm25_rescore.cu CPW2_MAX: two candidates a warp up to this width
+_PLAN_KEYS = ("nl", "cpw", "cands_per_cta", "threads", "grid_x", "grid_y")
+
+
+def _pow2_at_least(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def launch_plan(width: int, b: int, f: int) -> dict:
+    """How K3 and K5 launch for rows read over `width` lanes (K3: L2; K5: 64 or L), B
+    queries and F candidates, as `plan_for` in csrc/bm25_rescore.cu chooses: `cpw`
+    candidates per warp (two at widths up to 128, else one), each thread holding `nl`
+    register groups of 32 / cpw lanes (the width rounded up to a power of two), a CTA of
+    `threads` serving `cands_per_cta` candidates of one query, grid (grid_x, grid_y)."""
+    cpw = 2 if width <= _CPW2_MAX else 1
+    s = 32 // cpw
+    nl = _pow2_at_least(-(-width // s))
+    warps = min(_CTA_WARPS, _CTA_CANDS // cpw)
+    return dict(zip(_PLAN_KEYS, (nl, cpw, _CTA_CANDS, 32 * warps, -(-f // _CTA_CANDS), b)))
+
+
+def device_plan(split: bool, width: int, b: int, f: int) -> dict:
+    """`launch_plan` as the built library reports it (`wax_k3k5_plan`; builds the
+    kernels, needs a card), with the CTAs an SM holds of that instance."""
+    out = (ctypes.c_int * 7)()
+    err = load_library().wax_k3k5_plan(int(split), width, b, f, ctypes.cast(out, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"wax_k3k5_plan failed: CUDA error {err}")
+    return dict(zip(_PLAN_KEYS + ("ctas_per_sm",), out))
 
 
 def _query_planes(term_ids, idf):
