@@ -8,8 +8,9 @@ Phases, each printing lines tagged with its name:
   device    require CUDA, print the card's name and power limit (nvidia-smi), turn TF32 off
   build     compile wax_tpu_torch/csrc/*.cu (nvcc, sm_90a, one process per source) and
             print the seconds, each kernel's registers and spills, K3's and K5's launch
-            plans at each path's widths (held against `launch_plan`), K4's and K7's, and
-            K6's tensor-core launch (dynamic shared memory per CTA, CTAs per SM, grid)
+            plans at each path's widths (held against `launch_plan`), K4's and K7's (K7
+            also at the IVF shapes: d 768, S 384 bf16 and S 1,152 f32), and K6's
+            tensor-core launch (dynamic shared memory per CTA, CTAs per SM, grid)
   kernels   hold kernels K1 (packed-key scan), K2 (exact scan) and K9 (K1's function
             on K9's own tile), all three on 3xTF32 tensor-core scores, against their
             plain torch twins, and K1 against K9: exact-arithmetic data must agree bit
@@ -63,6 +64,23 @@ Phases, each printing lines tagged with its name:
             lane, K8, on-device RRF), timed with the term ids perturbed per call; K8
             held against its plain twin at the phase's own inputs, sel 0 and 3, all
             three modes
+  ivf_1m    path (d): the bench's ivf_1m_x768_nprobe8 shape: 1,048,576 x 768 bf16 rows
+            of the bench's clustered corpus (2,000 centres of scale 2 plus unit noise,
+            normalised; seeded on the card), 256 fresh queries of the same mixture;
+            build_ivf (4,096 clusters, 4 iterations, 524,288 training rows, S 384 bf16
+            buckets, spill "auto") timed and built twice (bit-identical), then
+            ivf_search_topk_pallas at k 10, nprobe 8 (K7 at k 20, then the dedup):
+            against the plain probe loop (near-ties only), recall@10 against the exact
+            chunkmax lane (K6 + K7) >= 0.93; K7 held against its plain twin at the
+            call's own probes ("ivf_1m" under K7 in the kernels line); calls per second
+  auto_2m   path (e): make_vector_engine("auto", dim=768) with its defaults over
+            2,097,152 x 768 rows of the same mixture: the routing decision (the bf16
+            flat lane's exact answers for 64 sampled queries, K6 + K7; IVF builds of
+            2,896 clusters of S 1,152 f32 and K7 searches up the nprobe ladder) in a
+            window of its own, stats() printed; then 4 x 256 perturbed corpus rows
+            served through search() (K7 on an IVF route); repeat serving bit-identical,
+            served recall@10 against the flat lane >= 0.92 on an IVF route; K7 held at
+            the served probes ("auto_2m" under K7)
 
 Each serving phase sets the launch counts to 0 just before it runs and reads them just
 after; every kernel of its path must have launched. Each profiled window also prints its
@@ -290,6 +308,8 @@ def build_phase() -> None:
     K7's launches (shared memory per CTA, CTAs per SM), K3's and K5's (register groups,
     candidates per warp and per CTA, grid, CTAs per SM) and K6's tensor-core launch:
     dynamic shared memory per CTA, CTAs per SM, grid."""
+    import torch
+
     from wax_tpu_torch.ops import _build
     from wax_tpu_torch.ops import bm25_chunked_pallas as ck
     from wax_tpu_torch.ops import bm25_rescore as rs
@@ -315,11 +335,13 @@ def build_phase() -> None:
     check(p["ctas_per_sm"] >= 1, f"K4's 32-slot body does not fit an SM: {p}")
     log("build", f"K4 32-slot body: {p['threads']} threads, {p['smem_bytes']} bytes of dynamic shared memory per "
         f"CTA, {p['ctas_per_sm']} CTA(s) per SM")
-    for d, k in ((384, 20), (768, 24)):
-        p = ivf.launch_plan(d, 128, k)
-        check(p["ring"] == 1 and p["ctas_per_sm"] >= 1, f"K7 at d {d}, k {k} does not take the ring body: {p}")
-        log("build", f"K7 at d {d} bf16, k {k}: ring body, {p['rows_per_slab']}-row slabs, {p['smem_bytes']} "
-            f"bytes of dynamic shared memory per CTA, {p['ctas_per_sm']} CTA(s) per SM")
+    for d, s, k, dt in ((384, 128, 20, torch.bfloat16), (768, 128, 24, torch.bfloat16),
+                        (768, 384, 20, torch.bfloat16), (768, 1152, 20, torch.float32), (768, 1152, 10, torch.float32)):
+        p = ivf.launch_plan(d, s, k, dt)
+        what = f"K7 at d {d}, S {s} {str(dt).split('.')[-1]}, k {k}"
+        check(p["ring"] == 1 and p["ctas_per_sm"] >= 1, f"{what} does not take the ring body: {p}")
+        log("build", f"{what}: ring body, {p['rows_per_slab']}-row slabs, {p['smem_bytes']} bytes of dynamic shared "
+            f"memory per CTA, {p['ctas_per_sm']} CTA(s) per SM")
     for name, split, width in (("K3 at engine_1m's L2", False, 64), ("K3 at hybrid_1m's L2", False, 128),
                                ("K5 narrow", True, 64), ("K5 wide at hybrid_1m's L", True, 128)):
         p = rs.device_plan(split, width, N_QUERIES, 256)
@@ -749,8 +771,6 @@ def kernel2_phase(dev, seed: int) -> dict:
     exact-arithmetic data bit for bit, random unit vectors within F32_TOL."""
     import torch
 
-    from wax_tpu_torch.ops import chunkmax_scan as cm
-    from wax_tpu_torch.ops import ivf_kernel as ivf
     from wax_tpu_torch.ops.flat_scan import NEG_INF, normalize_rows
     from wax_tpu_torch.ops.topk import blockmax_topk
 
@@ -767,60 +787,128 @@ def kernel2_phase(dev, seed: int) -> dict:
                 q = normalize_rows(torch.randn((b, d), generator=g, device=dev)).to(torch.bfloat16)
             bias = torch.zeros(N_1M, device=dev)
             bias[N_1M - 1000:] = NEG_INF  # a dead tail: the last chunks are partly live
-            cmk, cmp = cm.chunk_maxima(q, emb, bias), cm._chunk_maxima_plain(q, emb, bias)
-            torch.cuda.synchronize()
-            err6 = float((cmk - cmp).abs().max())
-            check(torch.equal(cmk, cmp) if exact else err6 <= F32_TOL, f"{name}: K6 differs (max {err6:.3g})")
+            r6, cmp = _k6_case("kernels2", name, q, emb, bias, exact=exact, timed=not exact)
             _, probes = blockmax_topk(cmp, kc)  # the chunks chunkmax_scan_topk rescores
             probes = probes.to(torch.int32).contiguous()
             counts = (bias.reshape(-1, 128) > NEG_INF * 0.5).sum(dim=1).to(torch.int32)
-            emb3, qf = emb.view(-1, 128, d), q.float()
-            (kv, kp), (pv, pp) = ivf.bucket_rescore(qf, probes, counts, emb3, kc), \
-                ivf._bucket_rescore_plain(qf, probes, counts, emb3, kc)
-            torch.cuda.synchronize()
-            err7 = float((kv - pv).abs().max())
-            if exact:
-                check(torch.equal(kv, pv) and torch.equal(kp, pp), f"{name}: K7 differs from its plain twin")
-                overlap = 1.0
-            else:
-                check(err7 <= F32_TOL, f"{name}: K7 values beyond {F32_TOL} (max {err7:.3g})")
-                hit = 0
-                for i in range(b):
-                    a, p = set(kp[i].tolist()), set(pp[i].tolist())
-                    hit += len(a & p)
-                    for pos in a ^ p:  # only near-ties of the k-th value may differ
-                        s = float((emb3[probes[i, pos // 128].long(), pos % 128].float() * qf[i]).sum())
-                        check(abs(s - float(pv[i, kc - 1])) <= F32_TOL, f"{name}: K7 position {pos} not a near-tie")
-                overlap = hit / pp.numel()
-                results["K6"]["max_abs_err"] = max(results["K6"]["max_abs_err"], err6)
-                results["K7"]["max_abs_err"] = max(results["K7"]["max_abs_err"], err7)
-            msg = f"{name}: K6 agree (max_abs_err={err6:.3g}); K7 agree (max_abs_err={err7:.3g}, overlap={overlap:.4f})"
+            r7 = _k7_case("kernels2", name, q.float(), probes, counts, emb.view(-1, 128, d), kc, b, exact=exact,
+                          timed=not exact)
             if not exact:
-                t = {
-                    "K6": cuda_ms(lambda: cm.chunk_maxima(q, emb, bias)),
-                    "K6 plain": cuda_ms(lambda: cm._chunk_maxima_plain(q, emb, bias)),
-                    "K6 library": cuda_ms(lambda: torch.matmul(q, emb.t())),
-                    "K7": cuda_ms(lambda: ivf.bucket_rescore(qf, probes, counts, emb3, kc)),
-                    "K7 plain": cuda_ms(lambda: ivf._bucket_rescore_plain(qf, probes, counts, emb3, kc)),
-                }
-                b6 = bound(N_1M * d * 2 + b * d * 2 + N_1M * 4 + b * (N_1M // 128) * 4, 2 * b * N_1M * d, "bf16")
-                b7 = bound(b * kc * 128 * d * 2 + b * d * 4 + b * kc * 4 + (N_1M // 128) * 4 + b * kc * 8,
-                           2 * b * kc * 128 * d, "bf16")
-                msg += (f"; K6 {t['K6']:.4f} ms, plain {t['K6 plain']:.4f} ms, library (torch.matmul bf16) "
-                        f"{t['K6 library']:.4f} ms, bound {b6[0]:.4f} ms ({b6[1]}); K7 {t['K7']:.4f} ms, plain "
-                        f"{t['K7 plain']:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]})")
-                r6 = dict(ms=t["K6"], plain_ms=t["K6 plain"], library_ms=t["K6 library"], bound_ms=b6[0],
-                          bound_by=b6[1])
-                r7 = dict(ms=t["K7"], plain_ms=t["K7 plain"], library_ms=None, bound_ms=b7[0], bound_by=b7[1])
+                for kern, r in (("K6", r6), ("K7", r7)):
+                    results[kern]["max_abs_err"] = max(results[kern]["max_abs_err"], r.pop("max_abs_err"))
                 if d == 384:  # the slice shape (path b) is the kernels line's own
                     results["K6"].update(r6)
                     results["K7"].update(r7)
                 else:  # the bench's flat_1m_x768 shape rides beside it
                     results["K6"]["x768"], results["K7"]["x768"] = r6, r7
-            log("kernels2", msg)
-            del emb, q, cmk, cmp, emb3
+            del emb, q, cmp
             torch.cuda.empty_cache()
     return results
+
+
+def _k6_case(phase, what, q, emb, bias, exact: bool = False, timed: bool = True):
+    """K6 at one call's own arguments against its plain twin: equal on exact-arithmetic
+    data, else within F32_TOL. Then K6's time, the twin's, torch.matmul's (the library
+    call) and the bound: the corpus, queries, bias and chunk maxima each moved once
+    (bytes), or the multiply-adds at the corpus type's rate. Returns (the kernels-line
+    record, the twin's chunk maxima)."""
+    import torch
+
+    from wax_tpu_torch.ops import chunkmax_scan as cm
+
+    (b, d), n = q.shape, emb.shape[0]
+    got, want = cm.chunk_maxima(q, emb, bias), cm._chunk_maxima_plain(q, emb, bias)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want) if exact else err <= F32_TOL, f"{phase} {what}: K6 differs (max {err:.3g})")
+    rec = dict(max_abs_err=err)
+    msg = f"{what}: K6 agrees with its plain twin (max_abs_err={err:.3g})"
+    if timed:
+        el = emb.element_size()
+        ms = cuda_ms(lambda: cm.chunk_maxima(q, emb, bias))
+        plain_ms = cuda_ms(lambda: cm._chunk_maxima_plain(q, emb, bias))
+        library_ms = cuda_ms(lambda: torch.matmul(q, emb.t()))
+        bms, by = bound(n * d * el + b * d * el + n * 4 + b * (n // 128) * 4, 2 * b * n * d,
+                        "bf16" if emb.dtype == torch.bfloat16 else "fp32")
+        p = cm.mma_plan(b, n)
+        msg += (f"; B {b}, {n} x {d} {str(emb.dtype).split('.')[-1]}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"(torch.matmul) {library_ms:.4f} ms, bound {bms:.4f} ms ({by}); plan: {p['queries_per_cta']} "
+                f"queries per CTA, grid {p['grid_x']} x {p['grid_y']}")
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by)
+    log(phase, msg)
+    return rec, want
+
+
+def _k7_bound(q, probes, counts, emb3, k):
+    """K7's bound at one call. Bytes: the live rows of each distinct probed bucket read
+    once, with the queries, probes, live counts and outputs; operations: one f32
+    multiply-add per element of every live row a query probes, at the FP32 rate.
+    Returns (ms, bound_by, a note with the byte counts beside the per-query reading)."""
+    b, nprobe = probes.shape
+    c, s, d = emb3.shape
+    el = emb3.element_size()
+    distinct = probes.unique().long()
+    live = int(counts[distinct].sum())
+    probed_live = int(counts[probes.long()].sum())
+    nbytes = live * d * el + b * d * 4 + b * nprobe * 4 + c * 4 + b * k * 8
+    bms, by = bound(nbytes, 2 * probed_live * d, "fp32")
+    note = (f"{by}: {nbytes / 1e9:.4f} GB = {live} live rows of {distinct.numel()} distinct buckets among "
+            f"{b * nprobe} probes; whole distinct buckets {distinct.numel() * s * d * el / 1e9:.4f} GB; every "
+            f"probe's bucket read per query {b * nprobe * s * d * el / 1e9:.4f} GB")
+    return bms, by, note
+
+
+def _k7_case(phase, what, q, probes, counts, emb3, k, block: int, exact: bool = False, timed: bool = True):
+    """K7 at one call's own arguments against its plain twin (run in query blocks of
+    `block`: it gathers [B, nprobe * S, d]): on exact-arithmetic data values and
+    positions equal; else values within F32_TOL and positions differing only among
+    near-ties of the k-th value. Then K7's time, the twin's (the sum over its blocks)
+    and `_k7_bound`. Returns the kernels-line record."""
+    import torch
+
+    from wax_tpu_torch.ops import ivf_kernel as ivf
+
+    b, nprobe = probes.shape
+    s, d = emb3.shape[1], emb3.shape[2]
+    kv, kp = ivf.bucket_rescore(q, probes, counts, emb3, k)
+    pv, pp = [], []
+    for i in range(0, b, block):
+        v, p = ivf._bucket_rescore_plain(q[i : i + block], probes[i : i + block], counts, emb3, k)
+        pv.append(v)
+        pp.append(p)
+    pv, pp = torch.cat(pv), torch.cat(pp)
+    torch.cuda.synchronize()
+    err = float((kv - pv).abs().max())
+    if exact:
+        check(torch.equal(kv, pv) and torch.equal(kp, pp), f"{phase} {what}: K7 differs from its plain twin")
+        overlap = 1.0
+    else:
+        check(err <= F32_TOL, f"{phase} {what}: K7 values beyond {F32_TOL} of its plain twin (max {err:.3g})")
+        hit = 0
+        for i in range(b):
+            a, p = set(kp[i].tolist()), set(pp[i].tolist())
+            hit += len(a & p)
+            for pos in a ^ p:  # only near-ties of the k-th value may differ
+                sc = float((emb3[probes[i, pos // s].long(), pos % s].float() * q[i]).sum())
+                check(abs(sc - float(pv[i, k - 1])) <= F32_TOL,
+                      f"{phase} {what}: K7 position {pos} of query {i} is not a near-tie")
+        overlap = hit / pp.numel()
+    rec = dict(max_abs_err=err)
+    msg = (f"{what}: K7 at B {b}, {nprobe} probes of {s} x {d} {str(emb3.dtype).split('.')[-1]}, k {k}: agrees "
+           f"with its plain twin (max_abs_err={err:.3g}, overlap={overlap:.4f})")
+    if timed:
+        ms = cuda_ms(lambda: ivf.bucket_rescore(q, probes, counts, emb3, k))
+        plain_ms = sum(cuda_ms(lambda i=i: ivf._bucket_rescore_plain(q[i : i + block], probes[i : i + block],
+                                                                      counts, emb3, k), iters=5, warmup=1)
+                       for i in range(0, b, block))
+        bms, by, note = _k7_bound(q, probes, counts, emb3, k)
+        p = ivf.launch_plan(d, s, k, emb3.dtype)
+        msg += (f"; {ms:.4f} ms, plain {plain_ms:.4f} ms (blocks of {block}), bound {bms:.4f} ms ({note}); plan: "
+                f"ring {p['ring']}, {p['rows_per_slab']}-row slabs, {p['smem_bytes']} bytes of shared memory, "
+                f"{p['ctas_per_sm']} CTA(s) per SM")
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+    log(phase, msg)
+    return rec
 
 
 # ---------------------------------------------------------------------------- engine_1m
@@ -870,11 +958,13 @@ def serve_engine_batch(engine, texts, qv, mode, timings=None):
 @contextlib.contextmanager
 def first_call_args(module, name: str, seen: dict):
     """Within the block, record the arguments of the first call of `module.name` in
-    seen[name] (the call itself runs unchanged)."""
+    seen[name] and the number of its calls in seen[name + " calls"] (the call itself
+    runs unchanged)."""
     fn = getattr(module, name)
 
     def recorded(*args):
         seen.setdefault(name, args)
+        seen[name + " calls"] = seen.get(name + " calls", 0) + 1
         return fn(*args)
 
     setattr(module, name, recorded)
@@ -1532,6 +1622,235 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- ivf_1m, auto_2m
+
+
+def clustered_corpus(n: int, g, dev, d: int = 768, n_centres: int = 2000, b: int = N_QUERIES):
+    """(rows [n, d] bf16, queries [b, d] f32): the bench's clustered corpus
+    (`bench.py` `_make_corpus_1m`): 2,000 centres of scale 2 plus unit noise,
+    normalised, drawn on the card from generator g in blocks; queries are fresh points
+    of the same mixture."""
+    import torch
+
+    from wax_tpu_torch.ops.flat_scan import normalize_rows
+
+    centres = torch.randn((n_centres, d), generator=g, device=dev) * 2.0
+    rows = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    for s in range(0, n, 131_072):
+        m = min(131_072, n - s)
+        pick = torch.randint(0, n_centres, (m,), generator=g, device=dev)
+        rows[s : s + m] = normalize_rows(centres[pick] + torch.randn((m, d), generator=g, device=dev))
+    pick = torch.randint(0, n_centres, (b,), generator=g, device=dev)
+    return rows, normalize_rows(centres[pick] + torch.randn((b, d), generator=g, device=dev))
+
+
+class _RowScores:
+    """scores[b, row] = q[b] . rows[row] in f32, computed on demand (for `_topk_agree`'s
+    near-tie checks on a corpus too large for a full score matrix)."""
+
+    def __init__(self, q, rows):
+        self.q, self.rows = q, rows
+
+    def __getitem__(self, key):
+        b, row = key
+        return float(self.q[b] @ self.rows[row].float())
+
+
+def ivf_1m_phase(dev, seed: int, results: dict) -> dict:
+    """Path (d): the bench's ivf_1m_x768_nprobe8 shape: build_ivf (4,096 clusters,
+    S 384 bf16 buckets, spill "auto") over 1,048,576 x 768 clustered rows and 256
+    queries through ivf_search_topk_pallas (K7), against the exact chunkmax lane (K6 +
+    K7). Returns this phase's launches."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.index.ivf import build_ivf, ivf_search_topk
+    from wax_tpu_torch.ops import chunkmax_scan as cm
+    from wax_tpu_torch.ops import ivf_kernel as ivfk
+    from wax_tpu_torch.ops.ivf_kernel import ivf_search_topk_pallas
+    from wax_tpu_torch.search.vector_engines import AutoVectorEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    rows, q = clustered_corpus(N_1M, g, dev)
+    torch.cuda.synchronize()
+    build_kw = dict(n_clusters=4096, iters=4, normalize=False, bucket_dtype=torch.bfloat16, train_rows=524_288,
+                    spill="auto", device=dev)
+    k, nprobe = 10, 8
+    truth_args, search_args = {}, {}
+    reset_launch_counts()
+    with first_call_args(cm, "chunk_maxima", truth_args), first_call_args(cm, "ivf_rescore", truth_args):
+        _, exact = cm.chunkmax_scan_topk(q, rows, torch.zeros(N_1M, device=dev), k)  # exact ground truth: K6 + K7
+    torch.cuda.synchronize()
+    truth = launch_counts()
+    check(truth["K6"] == 1 and truth["K7"] == 1, f"ivf_1m: the chunkmax ground truth launched {truth}")
+    t0 = time.perf_counter()
+    index = build_ivf(rows, np.arange(N_1M), **build_kw)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    reset_launch_counts()
+    with first_call_args(ivfk, "ivf_rescore", search_args):
+        vals, fids = ivf_search_topk_pallas(q, index, k=k, nprobe=nprobe)
+    torch.cuda.synchronize()
+    search = launch_counts()
+    check(search["K7"] == 1 and search["K6"] == 0, f"ivf_1m: ivf_search_topk_pallas launched {search}, not one K7")
+    launches = {kid: truth[kid] + search[kid] for kid in truth}
+    live = int((index.ids >= 0).sum())
+    log("ivf_1m", f"build_ivf over {N_1M} x 768 bf16 in {t_build:.2f} s (host clock, synchronised): "
+        f"{index.n_clusters} clusters of S {index.bucket_size}, spilled={index.spilled}, {live} live slots "
+        f"({live - N_1M} copies), buckets {index.emb.numel() * index.emb.element_size() / 1e9:.3f} GB; launches "
+        f"{launches}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(index.bucket_size == 384 and index.spilled and index.emb.dtype == torch.bfloat16,
+          f"ivf_1m: index S {index.bucket_size} spilled={index.spilled} {index.emb.dtype}")
+
+    # the same build again: bit for bit
+    again = build_ivf(rows, np.arange(N_1M), **build_kw)
+    check(torch.equal(again.ids, index.ids) and torch.equal(again.emb, index.emb)
+          and torch.equal(again.centroids, index.centroids), "ivf_1m: a second build with the same seed differs")
+    del again
+    torch.cuda.empty_cache()
+    check(tuple(fids.shape) == (N_QUERIES, k) and bool(torch.isfinite(vals).all()) and bool((fids >= 0).all()),
+          "ivf_1m: malformed search output")
+    # the K7 entry against the plain probe loop on the same index
+    pv, pf = ivf_search_topk(q, index, k=k, nprobe=nprobe)
+    _, overlap = _topk_agree("ivf_1m", "ivf_search_topk_pallas vs ivf_search_topk", vals.cpu(), fids.cpu(),
+                             pv.cpu(), pf.cpu(), _RowScores(q, rows), k, False, 0.0)
+    rec = AutoVectorEngine._recall(exact.cpu().numpy(), fids.cpu().numpy())
+    check(rec >= 0.93, f"ivf_1m: recall@{k} {rec:.4f} against the exact chunkmax lane < 0.93")
+    log("ivf_1m", f"checks: a second build is bit-identical (ids, buckets, centroids); the K7 entry agrees with the "
+        f"plain probe loop (overlap {overlap:.4f}, differences near-ties only); recall@{k} against the exact "
+        f"chunkmax lane (K6 + K7) {rec:.4f} (>= 0.93)")
+
+    # the ground truth's K6 and K7 at their own arguments (timed at this width in
+    # kernels2), then K7 at the IVF call's own arguments, and the entry's rate
+    _k6_case("ivf_1m", "chunkmax ground truth", *truth_args["chunk_maxima"], timed=False)
+    q7, probes7, counts7, emb7, _, k7 = truth_args["ivf_rescore"]
+    _k7_case("ivf_1m", "chunkmax ground truth", q7, probes7, counts7, emb7, k7, N_QUERIES, timed=False)
+    q7, probes7, counts7, emb7, _, k7 = search_args["ivf_rescore"]
+    check(k7 == min(2 * k, 128) and emb7 is index.emb, f"ivf_1m: the IVF call fetched {k7}, not {min(2 * k, 128)}")
+    rec7 = _k7_case("ivf_1m", "IVF search", q7, probes7, counts7, emb7, k7, 32)
+    rec7["launches"] = search["K7"]
+    results["K7"]["ivf_1m"] = rec7
+    ms = cuda_ms(lambda: ivf_search_topk_pallas(q, index, k=k, nprobe=nprobe))
+    plain = cuda_ms(lambda: ivf_search_topk(q, index, k=k, nprobe=nprobe), iters=5)
+    log("ivf_1m", f"ivf_search_topk_pallas B {N_QUERIES} k {k} nprobe {nprobe}: {ms:.4f} ms a call (CUDA events, 20 "
+        f"calls) = {1e3 / ms:.1f} calls/s = {N_QUERIES * 1e3 / ms:.1f} queries/s; plain probe loop {plain:.4f} ms")
+    device_profile("ivf_1m search", lambda: ivf_search_topk_pallas(q, index, k=k, nprobe=nprobe))
+    log("ivf_1m", f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+N_2M = 2_097_152
+
+
+def auto_2m_phase(dev, seed: int, results: dict) -> dict:
+    """Path (e): make_vector_engine("auto") at its own threshold: 2,097,152 x 768 rows,
+    the routing decision (the flat lane's exact answers for 64 sampled queries, IVF
+    builds and K7 searches up the nprobe ladder), then 4 x 256 perturbed corpus rows
+    served through search(). Returns the launches of the decision and serving windows."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.ops import chunkmax_scan as cm
+    from wax_tpu_torch.ops import ivf_kernel as ivfk
+    from wax_tpu_torch.ops.flat_scan import normalize_rows
+    from wax_tpu_torch.search.vector_engines import _AUTO_SAMPLE_Q, AutoVectorEngine, IVFVectorEngine, \
+        make_vector_engine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    rows, _ = clustered_corpus(N_2M, g, dev)
+    engine = make_vector_engine("auto", dim=768, device=dev)
+    t0 = time.perf_counter()
+    for s in range(0, N_2M, 262_144):
+        block = rows[s : s + 262_144].float().cpu().numpy()
+        engine.add_batch(np.arange(s, s + len(block)), block)
+    del rows
+    torch.cuda.empty_cache()
+    t_add = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 13)  # queries as the engine's _sample_queries draws them
+    state = engine.builder.state_arrays()
+    queries = []
+    for _ in range(4):
+        base = state["emb"][rng.choice(N_2M, N_QUERIES, replace=False)]
+        queries.append(normalize_rows(torch.from_numpy(base + rng.normal(0.0, 0.05, base.shape).astype(np.float32))))
+
+    flat_args = {}  # the flat lane's K6 and K7 calls in the decision (the IVF engines call ivfk's own)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with first_call_args(cm, "chunk_maxima", flat_args), first_call_args(cm, "ivf_rescore", flat_args):
+        snap = engine.snapshot()  # takes the routing decision
+    torch.cuda.synchronize()
+    t_decide = time.perf_counter() - t0
+    decide = launch_counts()
+    stats = engine.stats()
+    log("auto_2m", f"{N_2M} x 768 rows added in {t_add:.2f} s (host); decision in {t_decide:.2f} s (host clock, "
+        f"synchronised); stats() {stats}; launches {decide}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(decide["K6"] > 0 and decide["K7"] > decide["K6"], f"auto_2m: the decision launched K6 {decide['K6']} / "
+          f"K7 {decide['K7']} times")
+    # the flat lane's K6 (its B <= 128 instance) and K7 at the decision's own arguments
+    q6, emb6, bias6 = flat_args["chunk_maxima"]
+    check(tuple(q6.shape) == (_AUTO_SAMPLE_Q, 768) and tuple(emb6.shape) == (N_2M, 768)
+          and emb6.dtype == torch.bfloat16, f"auto_2m: the flat lane's K6 call {tuple(q6.shape)} x "
+          f"{tuple(emb6.shape)} {emb6.dtype}")
+    rec6, _ = _k6_case("auto_2m", "flat lane, decision's sample queries", q6, emb6, bias6)
+    rec6["launches"] = decide["K6"]
+    results["K6"]["auto_2m"] = rec6
+    q7, probes7, counts7, emb7, _, k7 = flat_args["ivf_rescore"]
+    rec7 = _k7_case("auto_2m", "flat lane, decision's sample queries", q7, probes7, counts7, emb7, k7, _AUTO_SAMPLE_Q)
+    rec7["launches"] = flat_args["ivf_rescore calls"]
+    results["K7"]["auto_2m_flat"] = rec7
+    route = engine._route()
+    check(stats["engine"] == ("ivf" if isinstance(route, IVFVectorEngine) else "flat"),
+          f"auto_2m: stats() {stats} does not name the served engine {route.kind}")
+    if stats["engine"] == "ivf":
+        check((snap.n_clusters, snap.bucket_size, snap.emb.dtype) == (2896, 1152, torch.float32),
+              f"auto_2m: IVF snapshot {snap.n_clusters} x {snap.bucket_size} {snap.emb.dtype}")
+        log("auto_2m", f"IVF snapshot: {snap.n_clusters} clusters of S {snap.bucket_size} f32, spilled="
+            f"{snap.spilled}, buckets {snap.emb.numel() * 4 / 1e9:.3f} GB")
+
+    serve_args = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    served, per_batch = [], []
+    t0 = time.perf_counter()
+    with first_call_args(ivfk, "ivf_rescore", serve_args):
+        for qb in queries:
+            t1 = time.perf_counter()
+            served.append(engine.search(qb.to(dev), 10))
+            per_batch.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t0
+    serve = launch_counts()
+    check(serve["K7"] == len(queries), f"auto_2m: serving {len(queries)} batches launched K7 {serve['K7']} times")
+    log("auto_2m", f"serve ({stats['engine']} route): 1024 queries in {wall:.3f} s = {1024 / wall:.1f} queries/s; "
+        f"per-batch ms (host clock, ending in the copy to the host) {[round(x, 3) for x in per_batch]}; "
+        f"launches {serve}")
+    for i in (0, 3):
+        again = engine.search(queries[i].to(dev), 10)
+        check(all(np.array_equal(a, b) for a, b in zip(again, served[i])), f"auto_2m batch {i}: repeat serving "
+              "changed the results")
+    exact = [engine._flat.search(qb.to(dev), 10)[1] for qb in queries]
+    rec = AutoVectorEngine._recall(np.concatenate(exact), np.concatenate([f for _, f in served]))
+    if stats["engine"] == "ivf":
+        check(rec >= 0.92, f"auto_2m: served recall@10 {rec:.4f} against the flat lane < 0.92")
+        q7, probes7, counts7, emb7, _, k7 = serve_args["ivf_rescore"]  # the first served batch's K7 call
+        check(emb7 is snap.emb and probes7.shape[1] == route.nprobe, "auto_2m: the served K7 call is not the route's")
+        rec7 = _k7_case("auto_2m", "served batch 0", q7, probes7, counts7, emb7, k7, 8)
+        rec7["launches"] = decide["K7"] - flat_args["ivf_rescore calls"] + serve["K7"]
+        results["K7"]["auto_2m"] = rec7
+        q0 = queries[0].to(dev)
+        device_profile("auto_2m serve", lambda: engine.search(q0, 10), iters=2)
+    else:
+        check(rec == 1.0, "auto_2m: the flat route does not serve the flat lane's answers")
+    log("auto_2m", f"checks: repeat serving bit-identical; served recall@10 against the flat lane {rec:.4f} "
+        f"({stats['engine']} route); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return {kid: decide[kid] + serve[kid] for kid in decide}
+
+
 # -------------------------------------------------------------------------------- main
 
 
@@ -1567,8 +1886,14 @@ def main(argv=None) -> int:
     path_b = hybrid_1m_phase(dev, results)
     torch.cuda.empty_cache()
     path_c = exact_30k_phase(dev, args.seed, results)
-    for kern in ("K3", "K4", "K6", "K7"):
+    torch.cuda.empty_cache()
+    path_d = ivf_1m_phase(dev, args.seed, results)
+    torch.cuda.empty_cache()
+    path_e = auto_2m_phase(dev, args.seed, results)
+    for kern in ("K3", "K4"):
         launches[kern] = path_a[kern] + path_b[kern]
+    for kern in ("K6", "K7"):
+        launches[kern] = path_a[kern] + path_b[kern] + path_d[kern] + path_e[kern]
     launches["K5"] = path_a["K5"]
     launches["K8"], launches["K9"] = path_c["K8"], path_c["K9"]
 
@@ -1592,7 +1917,8 @@ def main(argv=None) -> int:
             "replaces": fn_line, "launches": launches[kern], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("x768", "rows_10240", "engine_1m_l2_64", "hybrid_1m_wide") if key in r},
+            **{key: r[key] for key in ("x768", "rows_10240", "engine_1m_l2_64", "hybrid_1m_wide", "ivf_1m", "auto_2m",
+                                       "auto_2m_flat") if key in r},
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -261,6 +261,73 @@ def test_k4_k7_launch_plans(dev):
     assert ivf.launch_plan(384, 128, 129)["ring"] == 0
 
 
+@pytest.mark.parametrize("dtype,s,nprobe,k", [(torch.bfloat16, 384, 8, 10), (torch.bfloat16, 384, 8, 20),
+                                               (torch.float32, 1152, 8, 10), (torch.float32, 1152, 64, 20),
+                                               (torch.float32, 1152, 16, 128)])
+def test_k7_ivf_shapes_equal_plain_on_exact_data(dev, dtype, s, nprobe, k):
+    """K7 at the IVF paths' shapes, d 768: the bench's 384-row bf16 buckets at 8
+    probes (k 10, and the spilled window 20) and the 2M engine's 1,152-row f32 buckets
+    at 8-64 probes; buckets filled to random prefixes, one probed bucket empty. Bit-equal
+    to the plain twin."""
+    g = torch.Generator().manual_seed(s + nprobe + k)
+    c, b, d = 80, 48, 768
+    emb3 = _grid(g, (c, s, d), dev, dtype)
+    q = _grid(g, (b, d), dev)
+    probes = torch.stack([torch.randperm(c, generator=g)[:nprobe] for _ in range(b)]).to(dev, torch.int32)
+    counts = torch.randint(s // 2, s + 1, (c,), generator=g).to(dev, torch.int32)
+    counts[probes[0, 1]] = 0
+    k7 = ivf.K7_LAUNCHES
+    kv, kp = ivf.bucket_rescore(q, probes, counts, emb3, k)
+    assert ivf.K7_LAUNCHES == k7 + 1
+    pv, pp = ivf._bucket_rescore_plain(q, probes, counts, emb3, k)
+    assert torch.equal(kv, pv) and torch.equal(kp, pp)
+
+
+def test_k7_ivf_launch_plans(dev):
+    """Both IVF shapes take the ring body: 384-row bf16 buckets at d 768 in 16-row
+    slabs, 1,152-row f32 buckets in 8-row slabs."""
+    p = ivf.launch_plan(768, 384, 20, torch.bfloat16)
+    assert p["ring"] == 1 and p["rows_per_slab"] == 16 and p["ctas_per_sm"] >= 1, p
+    p = ivf.launch_plan(768, 1152, 20, torch.float32)
+    assert p["ring"] == 1 and p["rows_per_slab"] == 8 and p["ctas_per_sm"] >= 1, p
+
+
+def test_ivf_build_repeats_and_search_cuda_equals_cpu(dev):
+    """build_ivf on the card repeats bit for bit (no atomics in the centroid sums); the
+    K7 search of an index on the card equals the plain path on a CPU copy (exact data,
+    spilled and not). A spilled k 200 launches K7's arg-max body at nprobe 4 and takes
+    the plain path at nprobe 96, where its key plane does not fit shared memory."""
+    import dataclasses
+
+    from wax_tpu_torch.index.ivf import build_ivf, ivf_search_topk
+    from wax_tpu_torch.ops.ivf_kernel import ivf_search_topk_pallas
+
+    g = torch.Generator().manual_seed(11)
+    centres = torch.randint(-6, 7, (40, 96), generator=g)
+    rows = (centres[torch.randint(0, 40, (20_000,), generator=g)] + torch.randint(-2, 3, (20_000, 96), generator=g))
+    vecs = (rows.clamp(-8, 8) / 8.0).float()
+    q = vecs[:64].clone()
+    for spill in (0.0, "auto"):
+        a = build_ivf(vecs.to(dev), range(20_000), n_clusters=96, iters=4, normalize=False, spill=spill, device=dev)
+        b = build_ivf(vecs.to(dev), range(20_000), n_clusters=96, iters=4, normalize=False, spill=spill, device=dev)
+        for f in ("centroids", "emb", "ids", "bias"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), (spill, f)
+        cent = torch.round(a.centroids * 64.0) / 64.0  # every product exact
+        idx = dataclasses.replace(a, centroids=cent)
+        cpu = dataclasses.replace(idx, **{f: getattr(idx, f).cpu() for f in ("centroids", "emb", "ids", "bias")})
+        for k, nprobe in ((10, 8), (20, 16), (200, 4), (200, 96)):
+            k7 = ivf.K7_LAUNCHES
+            gv, gf = ivf_search_topk_pallas(q.to(dev), idx, k=k, nprobe=nprobe)
+            plain = spill and 2 * k > 128 and not ivf.argmax_fits(96, idx.bucket_size, nprobe)
+            assert plain == (spill and nprobe == 96), (idx.bucket_size, nprobe)
+            assert ivf.K7_LAUNCHES == k7 + (0 if plain else 1)
+            cv, cf = ivf_search_topk_pallas(q, cpu, k=k, nprobe=nprobe)
+            assert torch.equal(gf.cpu(), cf) and torch.equal(gv.cpu(), cv), (spill, k)
+            if not spill:
+                pv, pf = ivf_search_topk(q, cpu, k=min(k, 128), nprobe=nprobe)
+                assert torch.equal(pf, cf)
+
+
 def test_chunkmax_scan_cuda_equals_cpu(dev):
     g = torch.Generator().manual_seed(0)
     emb, q = _grid(g, (8192, 64), "cpu", torch.bfloat16), _grid(g, (33, 64), "cpu")

@@ -10,10 +10,11 @@ import torch
 
 from wax_tpu_torch.embed.minilm import MiniLMConfig, MiniLMEmbedder
 from wax_tpu_torch.index.dense import DenseIndexBuilder
+from wax_tpu_torch.index.ivf import build_ivf, ivf_index_from_numpy
 from wax_tpu_torch.index.lex import LexIndexBuilder
 from wax_tpu_torch.parallel.mesh import data_mesh
 from wax_tpu_torch.search.engine import HybridSearchEngine
-from wax_tpu_torch.search.vector_engines import FlatVectorEngine
+from wax_tpu_torch.search.vector_engines import AutoVectorEngine, FlatVectorEngine, IVFVectorEngine, make_vector_engine
 from wax_tpu_torch.utils.device import resolve_device
 
 TINY = MiniLMConfig(vocab_size=100, hidden=16, layers=1, heads=2, intermediate=32, max_positions=16)
@@ -32,6 +33,15 @@ ENTRY_POINTS = {
     "FlatVectorEngine": lambda **kw: FlatVectorEngine(8, **kw).device,
     "HybridSearchEngine": lambda **kw: HybridSearchEngine(None, dim=8, **kw).device,
     "data_mesh": lambda **kw: data_mesh(**kw).device,
+    "IVFVectorEngine": lambda **kw: IVFVectorEngine(8, **kw).device,
+    "AutoVectorEngine": lambda **kw: AutoVectorEngine(8, **kw).device,
+    "make_vector_engine(auto)": lambda **kw: make_vector_engine("auto", 8, **kw).device,
+    "make_vector_engine(ivf)": lambda **kw: make_vector_engine("ivf", 8, **kw).device,
+    "HybridSearchEngine(ivf)": lambda **kw: HybridSearchEngine(None, dim=8, vector_preference="ivf", **kw).vector.device,
+    "build_ivf": lambda **kw: build_ivf(np.eye(8, dtype=np.float32), np.arange(8), n_clusters=2, **kw).device,
+    "ivf_index_from_numpy": lambda **kw: ivf_index_from_numpy(
+        np.ones((1, 8), np.float32), np.ones((1, 128, 8), np.float32), np.zeros((1, 128), np.int32),
+        np.zeros((1, 128), np.float32), False, **kw).device,
 }
 
 

@@ -20,6 +20,9 @@ __all__ = [
     "bm25_topk",
     "rrf_fuse",
     "FlatVectorEngine",
+    "IVFVectorEngine",
+    "AutoVectorEngine",
+    "make_vector_engine",
     "HybridSearchEngine",
     "MiniLMEmbedder",
 ]
@@ -35,6 +38,9 @@ _WHERE = {
     "bm25_topk": "wax_tpu_torch.ops.bm25",
     "rrf_fuse": "wax_tpu_torch.ops.fusion",
     "FlatVectorEngine": "wax_tpu_torch.search.vector_engines",
+    "IVFVectorEngine": "wax_tpu_torch.search.vector_engines",
+    "AutoVectorEngine": "wax_tpu_torch.search.vector_engines",
+    "make_vector_engine": "wax_tpu_torch.search.vector_engines",
     "HybridSearchEngine": "wax_tpu_torch.search.engine",
     "MiniLMEmbedder": "wax_tpu_torch.embed.minilm",
 }

@@ -168,6 +168,12 @@ class DenseIndexBuilder:
         self._generation += 1
         return True
 
+    def state_arrays(self) -> dict[str, np.ndarray]:
+        """Live-prefix views of the builder's arrays (rows < count, tombstones
+        included): `emb`, `frame_ids` and `active`."""
+        n = self._count
+        return {"emb": self._emb[:n], "frame_ids": self._frame_ids[:n], "active": self._active[:n]}
+
     def snapshot(
         self, device: str | torch.device | None = None, device_dtype: torch.dtype | None = None
     ) -> DenseIndex:

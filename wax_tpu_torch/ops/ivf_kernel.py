@@ -1,9 +1,9 @@
 """Bucket-gather exact rescore with per-query top-k: kernel K7.
 
-PyTorch port of `wax_tpu.ops.ivf_kernel._run`, the TPU kernel that scores each
-query's probed [S, d] buckets and extracts its exact top-k. Here it serves the
-chunk-max scan (`ops/chunkmax_scan.py`, buckets = 128-row chunks); the IVF entry
-`ivf_search_topk_pallas` waits for the IVF slice.
+PyTorch port of `wax_tpu.ops.ivf_kernel`: the TPU kernel that scores each query's
+probed [S, d] buckets and extracts its exact top-k, and its IVF entry
+`ivf_search_topk_pallas`. K7 serves the IVF search and the chunk-max scan
+(`ops/chunkmax_scan.py`, buckets = 128-row chunks).
 
 `bucket_rescore` is the kernel wrapper: on CUDA tensors it launches K7
 (`csrc/ivf_kernel.cu`), on CPU tensors it runs the plain version
@@ -17,10 +17,15 @@ import ctypes
 
 import torch
 
+from wax_tpu_torch.index.ivf import IVFIndex, _pad_k, dedup_topk, ivf_search_topk
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
-__all__ = ["bucket_rescore", "ivf_rescore", "launch_plan", "K7_LAUNCHES"]
+__all__ = ["argmax_fits", "bucket_rescore", "ivf_rescore", "ivf_search_topk_pallas", "launch_plan", "K7_LAUNCHES"]
+
+_KPAD = 128  # the most candidates the TPU kernel extracts a query (its output lanes)
+_SMEM_MAX = 227 * 1024  # shared memory a CTA may hold on sm_90 (`SMEM_MAX` in csrc/ivf_kernel.cu)
+_ARGMAX_STATIC = 64  # the arg-max body's static shared memory: one 8-byte slot for each of its 8 warps
 
 K7_LAUNCHES = 0
 
@@ -87,6 +92,12 @@ def launch_plan(d: int, s: int, k: int, dtype=torch.bfloat16) -> dict:
     return dict(zip(("ring", "rows_per_slab", "smem_bytes", "ctas_per_sm"), out))
 
 
+def argmax_fits(d: int, s: int, nprobe: int) -> bool:
+    """Whether K7's arg-max body (k > 128) holds a query's plane of nprobe * s 8-byte
+    keys and its d-float query row in one CTA's shared memory."""
+    return nprobe * s * 8 + d * 4 + _ARGMAX_STATIC <= _SMEM_MAX
+
+
 def ivf_rescore(q, probes, counts, emb3, ids2, k: int):
     """`wax_tpu.ops.ivf_kernel._run`: K7, then flat positions decoded through the
     probe list to ids2[bucket, slot]; dead slots carry NEG_INF and id -1."""
@@ -99,3 +110,33 @@ def ivf_rescore(q, probes, counts, emb3, ids2, k: int):
     ids = torch.where(vals > NEG_INF * 0.5, ids, -1)
     vals = torch.where(ids >= 0, vals, NEG_INF)
     return vals, ids.to(torch.int32)
+
+
+def ivf_search_topk_pallas(queries: torch.Tensor, index: IVFIndex, k: int = 10, nprobe: int = 8):
+    """IVF search through K7: `index.ivf_search_topk`'s results, each query's probed
+    buckets scored and ranked by the kernel. Needs a 128-aligned bucket size.
+
+    As the TPU kernel, K7 returns at most 128 candidates a query on an index without
+    spill: there k > 128 gives [B, 128]. On a spilled index K7 fetches a window of
+    min(2k, nprobe * S) candidates and duplicates are collapsed after it, as the plain
+    path does. A window past 128 takes K7's arg-max body, whose key plane must fit
+    shared memory (`argmax_fits`); where it does not, the plain path answers (the TPU
+    kernel's 128 lanes send every spilled 2k > 128 there)."""
+    if queries.dim() == 1:
+        queries = queries[None, :]
+    if index.bucket_size % 128:
+        raise ValueError("the IVF kernel path requires a 128-aligned bucket size")
+    nprobe = min(nprobe, index.n_clusters)
+    if index.spilled and 2 * k > _KPAD and not argmax_fits(index.dim, index.bucket_size, nprobe):
+        return ivf_search_topk(queries, index, k, nprobe)
+    q = queries.float().contiguous()
+    _, probes = stable_top_k(q @ index.centroids.t(), nprobe)
+    counts = (index.ids >= 0).sum(dim=1).to(torch.int32)  # live rows a bucket: a prefix
+    width = index.bucket_size * nprobe
+    kfetch = min(2 * k, width) if index.spilled else min(k, _KPAD)
+    vals, fids = ivf_rescore(q, probes.to(torch.int32).contiguous(), counts, index.emb, index.ids,
+                             min(kfetch, width))
+    vals, fids = _pad_k(vals, fids, kfetch)
+    if index.spilled:
+        vals, fids = _pad_k(*dedup_topk(vals, fids, min(k, kfetch)), k)
+    return vals, fids

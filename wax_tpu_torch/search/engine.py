@@ -1,4 +1,4 @@
-"""Hybrid search engine: an embedder, a flat vector engine and a lexical builder.
+"""Hybrid search engine: an embedder, a vector engine and a lexical builder.
 
 PyTorch port of `wax_tpu.search.engine.HybridSearchEngine`, narrowed to what the
 hybrid query path needs: host-side builders, device snapshots cached per builder
@@ -19,15 +19,19 @@ from wax_tpu_torch.index.dense import Similarity
 from wax_tpu_torch.index.lex import LexIndex, LexIndexBuilder
 from wax_tpu_torch.parallel.mesh import Mesh, data_mesh
 from wax_tpu_torch.parallel.sharded_hybrid import shard_lex_index
-from wax_tpu_torch.search.vector_engines import FlatVectorEngine
+from wax_tpu_torch.search.vector_engines import VectorEngine, make_vector_engine
 from wax_tpu_torch.utils.device import resolve_device
 
 __all__ = ["HybridSearchEngine"]
 
 
 class HybridSearchEngine:
-    """Owns the lexical builder and a flat vector engine whose snapshots live on
-    `device` (None: the current CUDA device).
+    """Owns the lexical builder and a vector engine whose snapshots live on `device`
+    (None: the current CUDA device).
+
+    `vector_preference` picks the engine (`make_vector_engine`): "auto" (default; the
+    exact scan below 2,097,152 rows, then an IVF engine of measured recall), "flat" or
+    "ivf"; `vector_kwargs` go to it.
 
     `lex_postings_budget` caps each term's postings (None exact, "auto" exact below
     256K rows, or an int); a truncated snapshot carries the exact-rescore forward
@@ -44,6 +48,8 @@ class HybridSearchEngine:
         lex_sharded: bool = False,
         mesh: Mesh | None = None,
         lex_postings_budget: int | str | None = None,
+        vector_preference: str = "auto",
+        vector_kwargs: dict | None = None,
     ):
         if dim is None:
             if embedder is None:
@@ -51,7 +57,11 @@ class HybridSearchEngine:
             dim = embedder.dimensions
         self.embedder = embedder
         self.device = resolve_device(device)
-        self.vector = FlatVectorEngine(dim, similarity=similarity, device=self.device)
+        kw = dict(vector_kwargs or {})
+        if vector_preference in ("auto", "flat"):
+            kw.setdefault("similarity", similarity)
+        kw.setdefault("device", self.device)
+        self.vector: VectorEngine = make_vector_engine(vector_preference, dim=dim, **kw)
         self.lex = LexIndexBuilder(postings_budget=lex_postings_budget)
         self._lex_snap: LexIndex | None = None
         self._lex_gen = -1
