@@ -625,3 +625,105 @@ def test_k8_candidates_equal_plain(dev, exact, mode, sel):
     narrow = k8.candidate_scores_pallas(tq[:, :3].contiguous(), *args, max_df=31_744, mode=mode, sel=sel)
     for a, b in zip(narrow, k8._candidate_scores_plain(tq[:, :3], *args, 4, 32_768, mode, sel)):
         assert torch.equal(a, b)
+
+
+def _tf32_blind_centroids(c: int, d: int) -> torch.Tensor:
+    """[c, d] centroids whose best match for the all-ones-in-two-dims query needs f32:
+    centroid 1 (1 + 2^-12 on dim 1) beats centroid 0 (1 + 2^-13 on dim 0) in f32; TF32
+    rounds both to 1 and ties them, so its first maximum is centroid 0. The rest point
+    away (-1 on dim 2)."""
+    cent = torch.zeros((c, d))
+    cent[:, 2] = -1.0
+    cent[0, :3] = torch.tensor([1 + 2**-13, 0.0, 0.0])
+    cent[1, :3] = torch.tensor([0.0, 1 + 2**-12, 0.0])
+    return cent
+
+
+TF32_PATHS = ["scores_f32", "blockmax16_rescore", "kmeans_assign", "centroid_sums", "probe_selection",
+              "probe_loop_scores", "incremental_placement"]
+
+
+@pytest.mark.parametrize("path", TF32_PATHS)
+def test_f32_products_hold_with_tf32_on(dev, path):
+    """With TF32 turned on process-wide (`torch.backends.cuda.matmul.allow_tf32`), the
+    port's f32 product paths still compute in f32 and equal their CPU results: the
+    `xla` scan's scores (`flat_scan._scores_f32`) and blockmax16's exact rescore, the
+    IVF build's centroid sums and the plain probe loop's scores (within 1e-5 on unit
+    vectors); k-means assignment (`ivf._assign`), IVF probe selection
+    (`ivf.ivf_search_topk`) and the IVF engine's incremental placement
+    (`_try_incremental`) on centroids only f32 tells apart. Without the f32 pin
+    (`utils.device.full_f32_matmul`) five of these differed on an H100: scores by
+    8.1e-05, centroid sums by 4.55e-05, probe-loop scores by 0.0409, and the assignment
+    and placement picked centroid 0 for 1; blockmax16's rescore and probe selection at
+    these shapes held without it."""
+    from wax_tpu_torch.index import ivf as ivfm
+    from wax_tpu_torch.search.vector_engines import IVFVectorEngine
+
+    g = torch.Generator().manual_seed(11)
+    d, c = 384, 1024
+    cent = _tf32_blind_centroids(c, d)
+    ones = torch.zeros((4096, d))
+    ones[:, :2] = 1.0
+    q = fs.normalize_rows(torch.randn((256, d), generator=g))
+    emb = fs.normalize_rows(torch.randn((8192, d), generator=g))
+
+    def close(fn, *args):
+        got, want = fn(*[a.to(dev) for a in args]), fn(*args)
+        for x, y in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            err = float((x.cpu().float() - y.float()).abs().max())
+            assert err <= 1e-5, f"{path}: max |card - CPU| = {err:.3g}"
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        if path == "scores_f32":
+            close(fs._scores_f32, q, emb)
+        elif path == "blockmax16_rescore":
+            bias = torch.zeros(8192)
+            got = fs._blockmax16_topk(q.to(dev), emb.to(dev), bias.to(dev), 10)
+            want = fs._blockmax16_topk(q, emb, bias, 10)
+            err = float((got[0].cpu() - want[0]).abs().max())
+            assert err <= 1e-5, f"{path}: max |card - CPU| = {err:.3g}"
+        elif path == "centroid_sums":
+            assign = torch.randint(0, 64, (8192,), generator=g)
+            close(lambda v, a: ivfm._update_centroids(v, a, 64)[0], emb, assign)
+        elif path == "kmeans_assign":
+            got = ivfm._assign(ones.to(dev), cent.to(dev)).cpu()
+            assert torch.equal(got, ivfm._assign(ones, cent)) and bool((got == 1).all()), \
+                f"{path}: card assigns {got.unique().tolist()}, the CPU {ivfm._assign(ones, cent).unique().tolist()}"
+        else:
+            s = 128
+            bucket = torch.zeros((c, s, d))
+            ids = torch.full((c, s), -1, dtype=torch.int32)
+            bias = torch.full((c, s), fs.NEG_INF)
+            bucket[:, 0, 0] = 1.0  # one live row a bucket, frame id = its bucket
+            ids[:, 0] = torch.arange(c, dtype=torch.int32)
+            bias[:, 0] = 0.0
+
+            def index(device, centroids=cent, rows=bucket):
+                return ivfm.IVFIndex(centroids=centroids.to(device), emb=rows.to(device), ids=ids.to(device),
+                                     bias=bias.to(device))
+
+            if path == "probe_selection":
+                _, f = ivfm.ivf_search_topk(ones[:8].to(dev), index(dev), k=1, nprobe=1)
+                _, f_cpu = ivfm.ivf_search_topk(ones[:8], index("cpu"), k=1, nprobe=1)
+                assert torch.equal(f.cpu(), f_cpu) and bool((f_cpu == 1).all()), \
+                    f"{path}: card probes {f.cpu().unique().tolist()}, the CPU {f_cpu.unique().tolist()}"
+            elif path == "probe_loop_scores":
+                rows = fs.normalize_rows(torch.randn((c, s, d), generator=g))
+                cents = fs.normalize_rows(torch.randn((c, d), generator=g))
+                v, _ = ivfm.ivf_search_topk(q.to(dev), index(dev, cents, rows), k=10, nprobe=4)
+                v_cpu, _ = ivfm.ivf_search_topk(q, index("cpu", cents, rows), k=10, nprobe=4)
+                err = float((v.cpu() - v_cpu).abs().max())
+                assert err <= 1e-5, f"{path}: max |card - CPU| = {err:.3g}"
+            else:
+                placed = {}
+                for device in (dev, "cpu"):
+                    eng = IVFVectorEngine(dim=d, device=device)
+                    eng._snap = index(device)
+                    eng._pending_adds = [(10_000 + i, ones[0].numpy()) for i in range(4)]
+                    snap = eng._try_incremental()
+                    placed[str(device)] = torch.nonzero(snap.ids.cpu() >= 10_000)[:, 0]
+                assert torch.equal(placed[str(dev)], placed["cpu"]) and bool((placed["cpu"] == 1).all()), \
+                    f"{path}: card places in buckets {placed[str(dev)].tolist()}, the CPU {placed['cpu'].tolist()}"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -25,6 +25,8 @@ __all__ = [
     "make_vector_engine",
     "HybridSearchEngine",
     "MiniLMEmbedder",
+    "MemoryOrchestrator",
+    "OrchestratorConfig",
 ]
 
 _WHERE = {
@@ -43,6 +45,8 @@ _WHERE = {
     "make_vector_engine": "wax_tpu_torch.search.vector_engines",
     "HybridSearchEngine": "wax_tpu_torch.search.engine",
     "MiniLMEmbedder": "wax_tpu_torch.embed.minilm",
+    "MemoryOrchestrator": "wax_tpu_torch.orchestrator.orchestrator",
+    "OrchestratorConfig": "wax_tpu_torch.orchestrator.config",
 }
 
 

@@ -2,8 +2,9 @@
 
 PyTorch port of `wax_tpu.index.dense`. The builder is a copy of the JAX package's
 numpy builder (same MIN_CAPACITY doubling, ROW_ALIGN, cosine normalisation in
-`_prep`, upsert as tombstone plus append); only `snapshot()` differs: it returns a
-frozen dataclass of torch tensors on an explicit device.
+`_prep`, upsert as tombstone plus append, and the segment hooks `state_arrays` /
+`from_state_arrays` with zero-copy adoption and `_thaw`); only `snapshot()` differs:
+it returns a frozen dataclass of torch tensors on an explicit device.
 
 Padding and masking: `emb` has capacity rows; rows >= `count` are zero, removed rows
 stay in place with `active=False`, and `frame_ids` carries -1 for both.
@@ -139,11 +140,22 @@ class DenseIndexBuilder:
     def add(self, frame_id: int, vec: np.ndarray) -> None:
         self.add_batch(np.asarray([frame_id], dtype=np.int64), self._prep(vec))
 
+    def _thaw(self) -> None:
+        """Copy adopted read-only arrays (zero-copy segment loads) before the first
+        in-place mutation; no-op on ordinary writable state."""
+        if not self._emb.flags.writeable:
+            self._emb = self._emb.copy()
+        if not self._frame_ids.flags.writeable:
+            self._frame_ids = self._frame_ids.copy()
+        if not self._active.flags.writeable:
+            self._active = self._active.copy()
+
     def add_batch(self, frame_ids: np.ndarray, vecs: np.ndarray) -> None:
         vecs = self._prep(vecs)
         frame_ids = np.asarray(frame_ids, dtype=np.int64)
         if frame_ids.shape[0] != vecs.shape[0]:
             raise ValueError("frame_ids and vectors length mismatch")
+        self._thaw()
         self._ensure_capacity(vecs.shape[0])
         for fid, v in zip(frame_ids.tolist(), vecs):
             old = self._row_of.pop(fid, None)
@@ -162,17 +174,60 @@ class DenseIndexBuilder:
         row = self._row_of.pop(int(frame_id), None)
         if row is None:
             return False
+        self._thaw()
         self._active[row] = False
         self._frame_ids[row] = -1
         self._emb[row] = 0
         self._generation += 1
         return True
 
-    def state_arrays(self) -> dict[str, np.ndarray]:
+    def state_arrays(self, *, aligned: bool = False) -> dict[str, np.ndarray]:
         """Live-prefix views of the builder's arrays (rows < count, tombstones
-        included): `emb`, `frame_ids` and `active`."""
+        included): `emb`, `frame_ids` and `active`. `aligned=True` pads the row count
+        up to ROW_ALIGN (bounded by capacity, whose allocation is always aligned), so a
+        serialized segment is adopted zero-copy on load."""
         n = self._count
+        if aligned:
+            n = min(self._emb.shape[0], _round_up(max(n, 1), self.ROW_ALIGN))
         return {"emb": self._emb[:n], "frame_ids": self._frame_ids[:n], "active": self._active[:n]}
+
+    @classmethod
+    def from_state_arrays(
+        cls,
+        arrays: dict[str, np.ndarray],
+        dim: int,
+        similarity: str = Similarity.COSINE,
+        count: int | None = None,
+    ) -> "DenseIndexBuilder":
+        """Rebuild from serialized arrays. A ROW_ALIGN-aligned f32 container of at least
+        MIN_CAPACITY rows (segments written with state_arrays(aligned=True)) is adopted
+        as-is, with no copy, and the first mutation copies it (`_thaw`); other inputs
+        copy into a fresh aligned allocation. `count` is the live-prefix length when the
+        arrays carry alignment padding."""
+        rows = arrays["emb"].shape[0]
+        n = rows if count is None else min(int(count), rows)
+        emb = np.asarray(arrays["emb"])
+        fids = np.asarray(arrays["frame_ids"], np.int32)
+        active = np.asarray(arrays["active"], bool)
+        b = cls.__new__(cls)  # __init__ would allocate arrays both branches replace
+        b.dim = int(dim)
+        b.similarity = similarity
+        b.dtype = np.dtype(np.float32)
+        b._generation = 0
+        if rows >= cls.MIN_CAPACITY and rows % cls.ROW_ALIGN == 0 and emb.dtype == b.dtype:
+            b._emb, b._frame_ids, b._active = emb, fids, active
+        else:
+            cap = max(cls.MIN_CAPACITY, _round_up(max(rows, 1), cls.ROW_ALIGN))
+            b._emb = np.zeros((cap, int(dim)), b.dtype)
+            b._frame_ids = np.full((cap,), -1, np.int32)
+            b._active = np.zeros((cap,), bool)
+            b._emb[:rows] = emb
+            b._frame_ids[:rows] = fids
+            b._active[:rows] = active
+        b._count = n
+        live = np.nonzero(active[:n] & (fids[:n] >= 0))[0]
+        b._row_of = dict(zip(fids[live].tolist(), live.tolist()))
+        return b
 
     def snapshot(
         self, device: str | torch.device | None = None, device_dtype: torch.dtype | None = None

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
-from wax_tpu_torch.utils.device import resolve_device
+from wax_tpu_torch.utils.device import full_f32_matmul, resolve_device
 
 __all__ = ["IVFIndex", "build_ivf", "dedup_topk", "ivf_index_from_numpy", "ivf_search_topk", "kmeans", "lloyd"]
 
@@ -96,7 +96,10 @@ def _assign_rows(n_clusters: int) -> int:
     return max(8192, min(_ASSIGN_BLOCK, _ASSIGN_SCORE_BYTES // (4 * max(n_clusters, 1))))
 
 
+@full_f32_matmul
 def _assign_scores(vecs: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """[rows, C] f32 row-centroid products (assignment, probe selection, placement),
+    in f32 whatever the process's TF32 setting."""
     return vecs.float() @ centroids.t()
 
 
@@ -120,6 +123,7 @@ def _top_clusters(vecs: torch.Tensor, centroids: torch.Tensor, k: int):
     return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
 
 
+@full_f32_matmul
 def _update_centroids(vecs: torch.Tensor, assign: torch.Tensor, n_clusters: int):
     """(normalised means [C, d] f32, counts [C] f32) of the rows of each cluster. The
     sums are one-hot products in fixed row blocks: no atomics, so they repeat bit for
@@ -347,6 +351,7 @@ def _pad_k(vals: torch.Tensor, fids: torch.Tensor, k: int):
     return vals, fids
 
 
+@full_f32_matmul
 def ivf_search_topk(queries: torch.Tensor, index: IVFIndex, k: int = 10, nprobe: int = 8):
     """Probe each query's `nprobe` best buckets and score exactly inside them, one
     probe rank at a time (one [B, S, d] gather, its top-k, a merge into the running
@@ -358,7 +363,7 @@ def ivf_search_topk(queries: torch.Tensor, index: IVFIndex, k: int = 10, nprobe:
     nprobe = min(nprobe, index.n_clusters)
     s_bucket = index.bucket_size
     q = queries.float()
-    _, probes = stable_top_k(q @ index.centroids.t(), nprobe)  # [B, P]
+    _, probes = stable_top_k(_assign_scores(q, index.centroids), nprobe)  # [B, P]
     kk = min(2 * k if index.spilled else k, s_bucket * nprobe)
     best_v = torch.full((b, kk), NEG_INF, dtype=torch.float32, device=q.device)
     best_f = torch.full((b, kk), -1, dtype=torch.int32, device=q.device)

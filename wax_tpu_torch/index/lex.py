@@ -12,9 +12,14 @@ from the full document frequency, and adds the exact-rescore forward index
 (`fwd_tids`, `fwd_wnorm`, fused as `fwd_fused`) and the impact-chunked packed
 postings (`pk_chunks`) that the candidate kernels read.
 
+The builder also keeps each document's token-id sequence (an int32 token log with
+per-row offsets), which the v2 lex segment, the host MATCH engine (phrases, NEAR) and
+snippets read, and a CSR view of its postings cached per generation. Its state is
+arrays already, so a segment's frozen arrays are adopted straight into the logs
+(`from_frozen_arrays`) and `frozen_or_built_arrays` returns the JAX builder's arrays.
+
 Left out: the TPU-only layout (reversed postings copies `doc_rows_rev`, `wnorm_rev`,
-`pk_chunks_rev`, and the 1024-aligned DMA-window padding) and frozen-array
-persistence.
+`pk_chunks_rev`, and the 1024-aligned DMA-window padding).
 """
 from __future__ import annotations
 
@@ -251,7 +256,8 @@ class LexIndexBuilder:
     """Host-side mutable postings builder producing `LexIndex` snapshots.
 
     Documents are analysed on add; removal tombstones the row (its postings stay and
-    are masked by `active`).
+    are masked by `active`). Within each term id the posting log's rows ascend: an add
+    appends a new row, and an adopted segment's log is its CSR order.
     """
 
     def __init__(self, postings_budget: int | str | None = None):
@@ -265,6 +271,11 @@ class LexIndexBuilder:
         self._post_tid = array("i")
         self._post_row = array("i")
         self._post_tf = array("i")
+        # token log: the analysed token ids of every row in order, row r at
+        # _tok[_tok_off[r] : _tok_off[r + 1]]
+        self._tok = array("i")
+        self._tok_off = array("q", [0])
+        self._csr_cache: tuple | None = None
         self._doc_len: list[int] = []
         self._frame_ids: list[int] = []
         self._active: list[bool] = []
@@ -293,14 +304,17 @@ class LexIndexBuilder:
         fid = int(frame_id)
         if fid in self._row_of:
             self.remove(fid)
-        terms = analyze(text)
+        # term ids in token order: first occurrences assign new ids in the order the
+        # JAX builder assigns them (Counter order)
+        tids = [self._tid(t) for t in analyze(text)]
         row = len(self._doc_len)
-        self._doc_len.append(len(terms))
+        self._doc_len.append(len(tids))
         self._frame_ids.append(fid)
         self._active.append(True)
         self._row_of[fid] = row
-        for term, tf in Counter(terms).items():
-            tid = self._tid(term)
+        self._tok.extend(tids)
+        self._tok_off.append(len(self._tok))
+        for tid, tf in Counter(tids).items():
             self._df_all[tid] += 1
             self._post_tid.append(tid)
             self._post_row.append(row)
@@ -344,6 +358,83 @@ class LexIndexBuilder:
             return auto_postings_floor(n_rows)
         return b
 
+    def token_log(self) -> tuple[np.ndarray, np.ndarray]:
+        """(token ids int32 [L], row offsets int64 [N+1]): every row's analysed token-id
+        sequence in order, row r at [off[r], off[r + 1]); copies."""
+        return np.array(self._tok, np.int32), np.array(self._tok_off, np.int64)
+
+    def csr(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(post_offsets int64 [T+1], doc_rows int32 [P], tfs int32 [P]): the postings
+        grouped by term id, rows ascending within a term, tombstoned rows included;
+        cached per generation. Read-only views: copy before mutating."""
+        cache = self._csr_cache
+        if cache is not None and cache[0] == self._generation:
+            return cache[1]
+        t = len(self._vocab)
+        tid = np.array(self._post_tid, np.int32)
+        # rows ascend within each term id of the log, so a stable sort by term gives
+        # the CSR order
+        order = np.argsort(tid, kind="stable")
+        post_offsets = np.zeros(t + 1, np.int64)
+        if t:
+            np.cumsum(np.bincount(tid, minlength=t), out=post_offsets[1:])
+        out = (post_offsets, np.array(self._post_row, np.int32)[order], np.array(self._post_tf, np.int32)[order])
+        for a in out:
+            a.flags.writeable = False
+        self._csr_cache = (self._generation, out)
+        return out
+
+    def frozen_or_built_arrays(self) -> tuple[list[str], dict]:
+        """(vocab_list, v2 segment arrays), equal to the JAX builder's for the same adds
+        and removes: doc_tids i32 + doc_offsets i64 (token-id sequence per row),
+        frame_ids i64 (-1 for removed rows), active bool, and the postings CSR
+        doc_rows i32 + tfs i32 + post_offsets i64 (tombstoned rows included)."""
+        post_offsets, doc_rows, tfs = self.csr()
+        doc_tids, doc_offsets = self.token_log()
+        return list(self._vocab), {
+            "doc_tids": doc_tids,
+            "doc_offsets": doc_offsets,
+            "frame_ids": np.asarray(self._frame_ids, np.int64),
+            "active": np.asarray(self._active, bool),
+            "doc_rows": doc_rows.copy(),
+            "tfs": tfs.copy(),
+            "post_offsets": post_offsets.copy(),
+        }
+
+    @classmethod
+    def from_frozen_arrays(
+        cls, vocab_list: list[str], arrays: dict, postings_budget: int | str | None = None
+    ) -> "LexIndexBuilder":
+        """A builder over v2-segment arrays (see `frozen_or_built_arrays`): the vocab in
+        tid order, the token sequences adopted as the token log and the postings CSR as
+        the posting log (term-major, rows ascending within a term, which is all the
+        snapshot's stable sort by term needs)."""
+
+        def log(code: str, a) -> array:
+            out = array(code)
+            out.frombytes(np.ascontiguousarray(a, np.int32 if code == "i" else np.int64).tobytes())
+            return out
+
+        b = cls(postings_budget=postings_budget)
+        b._vocab = {t: i for i, t in enumerate(vocab_list)}
+        po = np.asarray(arrays["post_offsets"], np.int64)
+        sizes = np.diff(po)
+        b._df_all = sizes.tolist()
+        b._post_tid = log("i", np.repeat(np.arange(len(sizes), dtype=np.int32), sizes))
+        b._post_row = log("i", arrays["doc_rows"])
+        b._post_tf = log("i", arrays["tfs"])
+        offs = np.asarray(arrays["doc_offsets"], np.int64)
+        b._tok = log("i", arrays["doc_tids"])
+        b._tok_off = log("q", offs)
+        b._doc_len = np.diff(offs).tolist()
+        fids = np.asarray(arrays["frame_ids"], np.int64)
+        active = np.asarray(arrays["active"], bool)
+        b._frame_ids = fids.tolist()
+        b._active = active.tolist()
+        live = np.nonzero(active & (fids >= 0))[0]
+        b._row_of = dict(zip(fids[live].tolist(), live.tolist()))
+        return b
+
     def snapshot(self, device: str | torch.device | None = None) -> LexIndex:
         """Build the snapshot on `device` (None: the current CUDA device)."""
         device = resolve_device(device)
@@ -361,14 +452,11 @@ class LexIndexBuilder:
         avgdl = float(doc_len[:n][np.asarray(self._active, bool)].sum() / live) if n else 1.0
         avgdl = max(avgdl, 1e-6)
 
-        # the log is in row order (each add appends a new row), so a stable sort by
-        # term gives the CSR order: term-major, rows ascending
-        tid = np.asarray(self._post_tid).astype(np.int64)
-        rows = np.asarray(self._post_row).astype(np.int64)
-        tf_all = np.asarray(self._post_tf).astype(np.int64)
-        order = np.argsort(tid, kind="stable")
-        tid_s, rows_s, tf_s = tid[order], rows[order], tf_all[order]
-        sizes = np.bincount(tid_s, minlength=t) if t else np.zeros(0, np.int64)
+        # the postings in CSR order (term-major, rows ascending), widened to int64
+        post_offsets, csr_rows, csr_tfs = self.csr()
+        sizes = np.diff(post_offsets)
+        tid_s = np.repeat(np.arange(t, dtype=np.int64), sizes)
+        rows_s, tf_s = csr_rows.astype(np.int64), csr_tfs.astype(np.int64)
         # FTS5 idf: ln((N - df + 0.5) / (df + 0.5)) over active rows, clamped to 1e-6,
         # from the FULL document frequency (a budget never changes the statistics)
         df = np.bincount(tid_s, weights=active[rows_s], minlength=t) if t else np.zeros(1)

@@ -43,6 +43,7 @@ import torch
 from wax_tpu_torch.index.dense import DenseIndex, Similarity
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk, masked_top_k, stable_top_k
+from wax_tpu_torch.utils.device import full_f32_matmul
 
 __all__ = [
     "flat_scan_topk",
@@ -94,9 +95,10 @@ def _index_bias(index: DenseIndex) -> torch.Tensor:
     return torch.where(live, zero, NEG_INF)
 
 
+@full_f32_matmul
 def _scores_f32(q: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """[B, N] f32 dot products. bf16 operands are widened first (their products are
-    exact in f32), so every path accumulates in f32."""
+    exact in f32), so every path accumulates in f32, TF32 turned on or not."""
     return torch.matmul(q.float(), emb.float().t())
 
 

@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from wax_tpu_torch.index.ivf import IVFIndex, _pad_k, dedup_topk, ivf_search_topk
+from wax_tpu_torch.index.ivf import IVFIndex, _assign_scores, _pad_k, dedup_topk, ivf_search_topk
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
@@ -130,7 +130,7 @@ def ivf_search_topk_pallas(queries: torch.Tensor, index: IVFIndex, k: int = 10, 
     if index.spilled and 2 * k > _KPAD and not argmax_fits(index.dim, index.bucket_size, nprobe):
         return ivf_search_topk(queries, index, k, nprobe)
     q = queries.float().contiguous()
-    _, probes = stable_top_k(q @ index.centroids.t(), nprobe)
+    _, probes = stable_top_k(_assign_scores(q, index.centroids), nprobe)
     counts = (index.ids >= 0).sum(dim=1).to(torch.int32)  # live rows a bucket: a prefix
     width = index.bucket_size * nprobe
     kfetch = min(2 * k, width) if index.spilled else min(k, _KPAD)

@@ -297,8 +297,9 @@ def _dense_lane(q, dense: ShardedDenseIndex, kk: int, use_chunkmax: bool, use_se
         from wax_tpu_torch.ops.flat_scan import _packed_sel_scan_topk, _pick_tn
 
         return _packed_sel_scan_topk(q.to(emb.dtype).contiguous(), emb, bias, kk, _pick_tn(emb.shape[0]))
-    scores = torch.matmul(q.to(emb.dtype).float(), emb.float().t()) + bias[None, :]
-    return blockmax_topk(scores, kk)
+    from wax_tpu_torch.ops.flat_scan import _scores_f32
+
+    return blockmax_topk(_scores_f32(q.to(emb.dtype), emb) + bias[None, :], kk)
 
 
 def _rrf_on_device(dfid, lfid, k: int, fetch: int, w_dense: float, w_bm25: float, rrf_k: float):

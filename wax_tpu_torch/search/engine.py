@@ -1,33 +1,37 @@
-"""Hybrid search engine: an embedder, a vector engine and a lexical builder.
+"""Hybrid search engine: frames, a vector engine and a lexical builder.
 
-PyTorch port of `wax_tpu.search.engine.HybridSearchEngine`, narrowed to what the
-hybrid query path needs: host-side builders, device snapshots cached per builder
-generation (the plain CSR snapshot, and the mesh-sharded one for the sharded BM25
-lane), and query embedding. The frame catalog and structured evidence belong to the
-orchestrator slice.
+PyTorch port of `wax_tpu.search.engine.HybridSearchEngine`: the frame catalog,
+host-side builders, device snapshots cached per builder generation (the plain CSR
+snapshot, and the mesh-sharded one for the sharded BM25 lane), the structured-evidence
+hook and query embedding. Unlike the JAX engine it takes an explicit `device`.
 """
 from __future__ import annotations
 
 import threading
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from wax_tpu_torch.embed.provider import BatchEmbeddingProvider, EmbeddingProvider
 from wax_tpu_torch.index.dense import Similarity
+from wax_tpu_torch.index.frames import FrameCatalog
 from wax_tpu_torch.index.lex import LexIndex, LexIndexBuilder
 from wax_tpu_torch.parallel.mesh import Mesh, data_mesh
 from wax_tpu_torch.parallel.sharded_hybrid import shard_lex_index
 from wax_tpu_torch.search.vector_engines import VectorEngine, make_vector_engine
 from wax_tpu_torch.utils.device import resolve_device
+from wax_tpu_torch.utils.profiling import span
 
 __all__ = ["HybridSearchEngine"]
 
 
 class HybridSearchEngine:
-    """Owns the lexical builder and a vector engine whose snapshots live on `device`
-    (None: the current CUDA device).
+    """Owns the frame catalog, the lexical builder and a vector engine whose snapshots
+    live on `device` (None: the current CUDA device).
+
+    `structured_evidence` is an optional hook returning evidence frame ids for a query
+    (the orchestrator wires it to its structured memory: the structured lane).
 
     `vector_preference` picks the engine (`make_vector_engine`): "auto" (default; the
     exact scan below 2,097,152 rows, then an IVF engine of measured recall), "flat" or
@@ -44,6 +48,8 @@ class HybridSearchEngine:
         embedder: EmbeddingProvider | BatchEmbeddingProvider | None,
         dim: int | None = None,
         similarity: str = Similarity.COSINE,
+        frames: FrameCatalog | None = None,
+        structured_evidence: Callable[[str, int | None], list[int]] | None = None,
         device: str | torch.device | None = None,
         lex_sharded: bool = False,
         mesh: Mesh | None = None,
@@ -56,6 +62,8 @@ class HybridSearchEngine:
                 raise ValueError("either embedder or dim is required")
             dim = embedder.dimensions
         self.embedder = embedder
+        self.frames = frames if frames is not None else FrameCatalog()
+        self.structured_evidence = structured_evidence
         self.device = resolve_device(device)
         kw = dict(vector_kwargs or {})
         if vector_preference in ("auto", "flat"):
@@ -91,7 +99,8 @@ class HybridSearchEngine:
     def lex_snapshot(self) -> LexIndex:
         with self._snap_lock:
             if self._lex_snap is None or self._lex_gen != self.lex.generation:
-                self._lex_snap = self.lex.snapshot(device=self.device)
+                with span("engine.lex_snapshot"):
+                    self._lex_snap = self.lex.snapshot(device=self.device)
                 self._lex_gen = self.lex.generation
                 self.stats["lex_snapshots"] += 1
             return self._lex_snap

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from wax_tpu_torch.index.dense import DenseIndexBuilder, Similarity
-from wax_tpu_torch.index.ivf import IVFIndex, build_ivf, ivf_search_topk
+from wax_tpu_torch.index.ivf import IVFIndex, _assign_scores, build_ivf, ivf_search_topk
 from wax_tpu_torch.ops.flat_scan import flat_scan_topk
 from wax_tpu_torch.ops.ivf_kernel import ivf_search_topk_pallas
 from wax_tpu_torch.ops.topk import stable_top_k
@@ -122,6 +122,12 @@ class FlatVectorEngine(FreshLockOnCopyMixin):
                 self.snapshot_count += 1
             return self._snap
 
+    def trace(self, snap) -> None:
+        """Run the scan once on a GIVEN snapshot at B 1, k 24 (the orchestrator's
+        serving shape): builds and first-launches its kernel. The orchestrator's
+        warmup takes the snapshot under its read lock and calls this outside it."""
+        flat_scan_topk(torch.zeros((1, snap.dim), device=snap.device), snap, min(24, snap.capacity))
+
     def search(self, queries, k: int):
         """Top-k (scores, frame_ids) as numpy arrays [B, k]; `queries` is a numpy
         array or a tensor [B, dim] (or [dim]). Missing slots carry -inf / -1."""
@@ -221,7 +227,7 @@ class IVFVectorEngine(FreshLockOnCopyMixin):
         c, s = snap.n_clusters, snap.bucket_size
         fids = np.asarray([f for f, _ in self._pending_adds], np.int64)
         vecs = torch.from_numpy(np.stack([v for _, v in self._pending_adds]).astype(np.float32)).to(snap.device)
-        _, prefs = stable_top_k(vecs @ snap.centroids.t(), min(8, c))
+        _, prefs = stable_top_k(_assign_scores(vecs, snap.centroids), min(8, c))
         prefs = prefs.cpu().numpy()
         fills = (snap.ids >= 0).sum(dim=1).cpu().numpy()
         b_idx = np.empty(len(fids), np.int64)
@@ -275,6 +281,10 @@ class IVFVectorEngine(FreshLockOnCopyMixin):
                 self.snapshot_count += 1
             return self._snap
 
+    def trace(self, snap: IVFIndex) -> None:
+        """One B 1, k 24 search on a GIVEN snapshot (see FlatVectorEngine.trace)."""
+        self._search_snapshot(snap, torch.zeros((1, self.dim), device=snap.device), 24)
+
     def search(self, queries, k: int):
         """Top-k (scores, frame_ids) as numpy arrays [B, k] (see FlatVectorEngine):
         through K7 (`ivf_search_topk_pallas`) when the bucket size is 128-aligned, else
@@ -283,12 +293,13 @@ class IVFVectorEngine(FreshLockOnCopyMixin):
         if len(self.builder) == 0:
             return _empty_result(queries, k)
         snap = self.snapshot()
-        q = _query_tensor(queries, snap.device)
-        if snap.bucket_size % 128 == 0:
-            vals, fids = ivf_search_topk_pallas(q, snap, k=k, nprobe=self.nprobe)
-        else:
-            vals, fids = ivf_search_topk(q, snap, k=k, nprobe=self.nprobe)
+        vals, fids = self._search_snapshot(snap, _query_tensor(queries, snap.device), k)
         return vals.cpu().numpy(), fids.cpu().numpy()
+
+    def _search_snapshot(self, snap: IVFIndex, q: torch.Tensor, k: int):
+        if snap.bucket_size % 128 == 0:
+            return ivf_search_topk_pallas(q, snap, k=k, nprobe=self.nprobe)
+        return ivf_search_topk(q, snap, k=k, nprobe=self.nprobe)
 
     def __len__(self):
         return len(self.builder)
@@ -456,6 +467,11 @@ class AutoVectorEngine(FreshLockOnCopyMixin):
 
     def snapshot(self):
         return self._route().snapshot()
+
+    def trace(self, snap) -> None:
+        """One serving-shape search on a GIVEN snapshot of the current route (see
+        FlatVectorEngine.trace)."""
+        (self._ann if isinstance(snap, IVFIndex) else self._flat).trace(snap)
 
     def search(self, queries, k: int):
         return self._route().search(queries, k)
