@@ -98,6 +98,27 @@ Phases, each printing lines tagged with its name:
             as the card did once the CPU is given the card's vector lane; fused top-10
             equal for >= ORCH_FUSED_FLOOR of queries (the 99% that was asked for is
             not met: near-tie swaps in the vector lane reorder 1.6-4.7% of them)
+  hnsw_100k path (g): BASELINE config 3: make_vector_engine("hnsw", dim=384) (the
+            native CppHNSWBuilder, required; M 16, efConstruction 100) over 102,400
+            hard-clustered unit rows (scripts/hnsw_parity.py's "hard" set: 200 centres,
+            noise 0.15), the build's host seconds, the snapshot's seconds and bytes on
+            the card; 256 queries (the same set from seed + 1) at ef 16, 64, 128 and 256
+            through `hnsw_search` on the card: recall@10 against the exact top-10 of K2
+            (`flat_scan_topk(backend="pallas")`, K2 held against its twin and timed
+            there, "hnsw_100k" under K2), ms a batch (median of 20, CUDA events), kernels
+            a search and busy share (torch.profiler); every id live and unique, every
+            score within 3e-5 of its float64 score, recall falling by no more than 0.01
+            as ef grows and >= 0.95 at ef 256; TF32 on gives the same bits; the same
+            graph on the CPU overlaps the card's top-10 >= 0.98 (32 queries, ef 64); a
+            4,096 x 64 grid graph answers bit for bit as the CPU at ef 16 and 64
+  orch_hnsw MemoryOrchestrator(OrchestratorConfig(vector_engine="hnsw")) over the first
+            10,240 smoke documents (full-width MiniLM, bf16, random weights):
+            remember_batch, 64 searches and 16 recalls one at a time (p50, p99; no port
+            kernel launched), a profiled window, the vector lane's recall@10 against a
+            flat engine over the same embeddings (reported), flush, close and a cold
+            reopen (stats "hnsw", CppHNSWBuilder, the 64 answers bit-identical); then
+            open_session(..., vector_preference="hnsw"): put_batch of the documents with
+            their embeddings, commit, reopen, 16 searches bit-identical
 
 Each serving phase sets the launch counts to 0 just before it runs and reads them just
 after; every kernel of its path must have launched. Each profiled window also prints its
@@ -201,8 +222,9 @@ def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> dict:
     first, and only the device events that start after it count. A full garbage
     collection runs before the timed calls, so that one over a large host heap does not
     land in them at random. Returns the port kernels' launches in the window
-    ("launched") and their recorded device events ("recorded", None when the profiler
-    recorded no device time)."""
+    ("launched"), their recorded device events ("recorded", None when the profiler
+    recorded no device time), the device events of all kernels ("events") and the busy
+    share ("busy"; both None without device time)."""
     import gc
 
     import torch
@@ -229,7 +251,7 @@ def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> dict:
                       if e.device_type == DeviceType.CUDA and e.time_range.start >= start and e.name != mark)
     if not timeline:
         log(phase, f"profile: no device time recorded over {wall_ms:.3f} ms of wall time (not measured)")
-        return {"launched": launched, "recorded": None}
+        return {"launched": launched, "recorded": None, "events": None, "busy": None}
     by_name: dict = {}
     for _, dur, name in timeline:
         ms, n = by_name.get(name, (0.0, 0))
@@ -245,7 +267,7 @@ def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> dict:
     if recorded != launched:
         log(phase, "profile: device timeline (start us, duration us, kernel): "
             + "; ".join(f"{t - start:.1f} {d:.1f} {short_kernel_name(name)}" for t, d, name in timeline))
-    return {"launched": launched, "recorded": recorded}
+    return {"launched": launched, "recorded": recorded, "events": len(timeline), "busy": busy / wall_ms}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -262,6 +284,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median of `iters` calls of fn() in ms, each timed by CUDA events recorded just
+    before and just after it (a host-bound call's events span its launches too)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def queued_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -2204,6 +2245,368 @@ def orch_100k_phase(dev, seed: int, results: dict) -> dict:
     return {"K1": serve_launches["K1"], "K3": budget_launches["K3"]}
 
 
+# ---------------------------------------------------------------------------------- HNSW
+
+N_HNSW = 102_400  # BASELINE config 3: 100K x 384, M 16, efSearch 16-256 against the exact scan
+HNSW_DIM = 384
+HNSW_EFS = (16, 64, 128, 256)
+HNSW_SCORE_TOL = 3e-5  # a listed score against its id's float64 score
+# recall@10 at ef 256: docs/benchmarks.md records 0.986 (0.958 at ef 128) for the same
+# builder and beam on 100K x 384 hard-clustered rows; recall belongs to the algorithm
+HNSW_RECALL_FLOOR = 0.95
+N_ORCH_HNSW = 10_240
+
+
+def hard_clustered(n: int, rng, d: int = HNSW_DIM):
+    """[n, d] f32 unit rows of `scripts/hnsw_parity.py`'s "hard" set (its
+    `make_dataset("hard", n, rng)`): 200 normal centres plus noise 0.15, drawn from
+    numpy generator `rng`."""
+    import numpy as np
+
+    c = rng.standard_normal((200, d)).astype(np.float32)
+    a = rng.integers(0, 200, n)
+    v = c[a] + 0.15 * rng.standard_normal((n, d)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return v
+
+
+def _k2_case(phase, q, snap, k) -> dict:
+    """K2 against its plain twin at the arguments `flat_scan_topk(backend="pallas")`
+    passes it for (q, snap, k): tile values within F32_TOL, merged ids equal but for
+    near-ties; kernel, plain and torch.matmul f32 times (CUDA events) and the bound."""
+    import torch
+
+    from wax_tpu_torch.ops import flat_scan as fs
+
+    emb, bias = snap.emb, fs._index_bias(snap)
+    (b, d), n = q.shape, emb.shape[0]
+    tn = fs._pick_tn(n)
+
+    def run_kernel():
+        return fs.scan_topk_tiles(q, emb, bias, k, tn)
+
+    def run_plain():
+        return fs._scan_topk_plain(q, emb, bias, k, tn)
+
+    (gv, gr), (rv, rr) = run_kernel(), run_plain()
+    check(float((gv - rv).abs().max()) <= F32_TOL, f"{phase}: K2 tile values beyond {F32_TOL}")
+    scores = fs._scores_f32(q, emb) + bias[None, :]
+    err, overlap = _topk_agree(phase, "K2", *fs._merge_tiles(gv, gr, k), *fs._merge_tiles(rv, rr, k), scores, k,
+                               False, 0.0)
+    del scores
+    out_bytes = b * (n // tn) * k * 8
+    nbytes = 4 * (b * d + n * d) + 4 * n + out_bytes
+    rec = {"ms": cuda_ms(run_kernel), "plain_ms": cuda_ms(run_plain), "max_abs_err": err}
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * 2 * b * n * d, "tf32")
+    rec["library_ms"] = cuda_ms(lambda: torch.matmul(q, emb.t()))
+    log(phase, f"K2 at B {b} x {n} x {d} f32, k {k} (tn {tn}): agrees with its twin (max_abs_err={err:.3g}, "
+        f"overlap={overlap:.4f}); kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library (torch.matmul f32) {rec['library_ms']:.4f} ms")
+    return rec
+
+
+def _hnsw_checks(phase, what, vals, fids, q64, emb64, row_of, live):
+    """Every returned id of a [B, k] answer is live, no row repeats an id, and every
+    score lies within HNSW_SCORE_TOL of its id's float64 score. Returns the largest
+    score gap."""
+    import numpy as np
+
+    check(bool((fids >= 0).all()), f"{phase}: {what} returned {int((fids < 0).sum())} empty slots")
+    check(bool(live[fids].all()), f"{phase}: {what} returned a dead id")
+    check(all(len(set(r)) == len(r) for r in fids.tolist()), f"{phase}: {what} repeats an id in a row")
+    exact = np.einsum("bd,bkd->bk", q64, emb64[row_of[fids]])
+    gap = float(np.abs(vals.astype(np.float64) - exact).max())
+    check(gap <= HNSW_SCORE_TOL, f"{phase}: {what} lists a score {gap:.3g} from its id's exact score")
+    return gap
+
+
+def hnsw_100k_phase(dev, seed: int, results: dict) -> dict:
+    """BASELINE config 3: make_vector_engine("hnsw", dim=384) (CppHNSWBuilder, M 16,
+    efConstruction 100) over 102,400 hard-clustered unit rows; 256 queries at ef 16,
+    64, 128 and 256 through `hnsw_search` on the card against the exact top-10 of K2
+    (`flat_scan_topk(backend="pallas")`, held against its twin here); the card against
+    the CPU on the same graph, bit for bit on a 1/8-grid graph, and with TF32 on.
+    Returns this phase's launches."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.index.dense import DenseIndexBuilder
+    from wax_tpu_torch.index.graph import HNSWBuilder
+    from wax_tpu_torch.index.graph_cpp import CppHNSWBuilder
+    from wax_tpu_torch.ops import flat_scan as fs
+    from wax_tpu_torch.ops.beam_search import hnsw_search
+    from wax_tpu_torch.search.vector_engines import AutoVectorEngine, make_vector_engine
+
+    phase = "hnsw_100k"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    k = 10
+    vecs = hard_clustered(N_HNSW, np.random.default_rng(seed))
+    qn = hard_clustered(N_QUERIES, np.random.default_rng(seed + 1))
+    q = torch.from_numpy(qn).to(dev)
+
+    # 1. build on the host, flatten onto the card
+    eng = make_vector_engine("hnsw", dim=HNSW_DIM, device=dev)
+    check(type(eng.builder) is CppHNSWBuilder,
+          f"{phase}: the engine built with {type(eng.builder).__name__}, not CppHNSWBuilder (no native library)")
+    check((eng.builder.m, eng.builder.ef_construction, eng.ef_search) == (16, 100, 64),
+          f"{phase}: engine M {eng.builder.m}, efConstruction {eng.builder.ef_construction}, ef {eng.ef_search}")
+    t0 = time.perf_counter()
+    eng.add_batch(np.arange(N_HNSW), vecs)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = eng.snapshot()
+    torch.cuda.synchronize()
+    t_snap = time.perf_counter() - t0
+    check(graph.device == dev and graph.max_degree == 48 and graph.capacity == N_HNSW,
+          f"{phase}: snapshot on {graph.device}, degree {graph.max_degree}, capacity {graph.capacity}")
+    graph_bytes = sum(t.numel() * t.element_size()
+                      for t in (graph.adjacency, graph.emb, graph.frame_ids, graph.bias, graph.entries))
+    log(phase, f"CppHNSWBuilder (M 16, efConstruction 100) over {N_HNSW} x {HNSW_DIM} hard-clustered unit rows: "
+        f"build {t_build:.2f} s = {N_HNSW / t_build:.1f} rows/s (host); snapshot {t_snap:.2f} s (state export, "
+        f"flattening, copy to the card); GraphIndex on the card {graph_bytes} bytes (adjacency "
+        f"{tuple(graph.adjacency.shape)} int32, rows {tuple(graph.emb.shape)} f32, {graph.entries.shape[0]} entry seeds)")
+
+    # 2. the exact top-10 through K2 on the same rows
+    dense = DenseIndexBuilder(dim=HNSW_DIM)
+    dense.add_batch(np.arange(N_HNSW), vecs)
+    dsnap = dense.snapshot(device=dev)
+    reset_launch_counts()
+    _, _, truth = fs.flat_scan_topk(q, dsnap, k, backend="pallas")
+    torch.cuda.synchronize()
+    gt = launch_counts()
+    check(gt["K2"] >= 1 and sum(gt.values()) == gt["K2"], f"{phase}: the exact ground truth launched {gt}")
+    truth = truth.cpu().numpy()
+    rec2 = _k2_case(phase, q, dsnap, k)
+    rec2["launches"] = gt["K2"]
+    results["K2"]["hnsw_100k"] = rec2
+    results["K2"]["max_abs_err"] = max(results["K2"]["max_abs_err"], rec2["max_abs_err"])
+    del dense, dsnap
+
+    # 3. the ef sweep on the card
+    emb64 = graph.emb.cpu().numpy().astype(np.float64)
+    fids_all = graph.frame_ids.cpu().numpy()
+    row_of = np.full(N_HNSW, -1, np.int64)
+    row_of[fids_all[fids_all >= 0]] = np.nonzero(fids_all >= 0)[0]
+    live = (graph.bias.cpu().numpy() == 0.0)[row_of.clip(min=0)] & (row_of >= 0)
+    q64 = qn.astype(np.float64)
+    sweep, answers = {}, {}
+    for ef in HNSW_EFS:
+        def run(ef=ef):
+            return hnsw_search(q, graph, k=k, ef=ef)
+
+        reset_launch_counts()
+        vals, fids = run()
+        torch.cuda.synchronize()
+        check(not any(launch_counts().values()), f"{phase}: the beam search launched port kernels {launch_counts()}")
+        answers[ef] = (vals, fids)
+        v, f = vals.cpu().numpy(), fids.cpu().numpy()
+        check(v.shape == f.shape == (N_QUERIES, k) and v.dtype == np.float32 and f.dtype == np.int32,
+              f"{phase}: ef {ef} answer {v.shape} {v.dtype} {f.dtype}")
+        gap = _hnsw_checks(phase, f"ef {ef}", v, f, q64, emb64, row_of, live)
+        recall = AutoVectorEngine._recall(truth, f)
+        ms = median_call_ms(run)
+        prof = device_profile(f"{phase} ef {ef}", run, iters=1)
+        sweep[ef] = {"recall": recall, "ms": ms, "kernels": prof["events"], "busy": prof["busy"], "gap": gap}
+        log(phase, f"ef {ef}, B {N_QUERIES}, k {k}: recall@{k} {recall:.4f} against K2's exact top-{k}; "
+            f"{ms:.3f} ms a batch (median of 20 calls, CUDA events) = {N_QUERIES * 1e3 / ms:.1f} queries/s; "
+            f"{prof['events']} kernels a search ({ef} steps); device busy "
+            + (f"{100 * prof['busy']:.1f}%" if prof["busy"] is not None else "not measured")
+            + f"; ids live and unique, scores within {gap:.3g} of float64")
+    for lo, hi in zip(HNSW_EFS, HNSW_EFS[1:]):
+        check(sweep[hi]["recall"] >= sweep[lo]["recall"] - 0.01,
+              f"{phase}: recall falls from {sweep[lo]['recall']:.4f} at ef {lo} to {sweep[hi]['recall']:.4f} at ef {hi}")
+    check(sweep[256]["recall"] >= HNSW_RECALL_FLOOR,
+          f"{phase}: recall@{k} at ef 256 {sweep[256]['recall']:.4f} < {HNSW_RECALL_FLOOR}")
+    ev, ef_ids = eng.search(qn, k)  # the engine's own entry at its ef_search 64
+    check(np.array_equal(ef_ids, answers[64][1].cpu().numpy()) and np.array_equal(ev, answers[64][0].cpu().numpy()),
+          f"{phase}: HNSWVectorEngine.search differs from hnsw_search at ef 64")
+
+    # 4. TF32 on: the same bits, and the caller's setting restored
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = hnsw_search(q, graph, k=k, ef=64)
+        flag_after = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(flag_after is True, f"{phase}: hnsw_search left allow_tf32 at {flag_after}, not the caller's True")
+    check(all(torch.equal(a, b) for a, b in zip(on, answers[64])), f"{phase}: TF32 on changes the ef 64 answers")
+
+    # 5. the same graph on the CPU: 32 queries at ef 64
+    gcpu = _cpu_copy(graph)
+    _, cf = hnsw_search(q[:32].cpu(), gcpu, k=k, ef=64)
+    card_f = answers[64][1][:32].cpu().numpy()
+    overlap = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(card_f.tolist(), cf.numpy().tolist())]))
+    same_rows = int((card_f == cf.numpy()).all(axis=1).sum())
+    check(overlap >= 0.98, f"{phase}: card and CPU top-{k} overlap {overlap:.4f} < 0.98")
+    del gcpu
+
+    # 6. exact arithmetic: a 1/8-grid graph (numpy builder, normalize=False), card = CPU
+    rng = np.random.default_rng(seed + 2)
+    grid = (rng.integers(-8, 9, (4096, 64)) / 8.0).astype(np.float32)
+    gq = torch.from_numpy((rng.integers(-8, 9, (N_QUERIES, 64)) / 8.0).astype(np.float32))
+    t0 = time.perf_counter()
+    pb = HNSWBuilder(dim=64, m=8, ef_construction=40, normalize=False)
+    pb.add_batch(np.arange(4096), grid)
+    t_py = time.perf_counter() - t0
+    g_card, g_cpu = pb.snapshot(device=dev), pb.snapshot(device="cpu")
+    for ef in (16, 64):
+        got, want = hnsw_search(gq.to(dev), g_card, k=k, ef=ef), hnsw_search(gq, g_cpu, k=k, ef=ef)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"{phase}: the grid graph's ids or scores differ between the card and the CPU at ef {ef}")
+    log(phase, f"checks: TF32 on gives the same bits at ef 64 (the setting restored); the CPU on the same graph "
+        f"(32 queries, ef 64) overlaps the card's top-{k} {overlap:.4f}, {same_rows} of 32 rows equal; the 4,096 x 64 "
+        f"grid graph (numpy builder, M 8, efConstruction 40, {t_py:.1f} s) answers bit for bit as the CPU at ef 16 "
+        f"and 64; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+    return {"K2": gt["K2"], "sweep": sweep, "build_s": t_build, "snapshot_s": t_snap}
+
+
+def orch_hnsw_phase(dev, seed: int) -> dict:
+    """The MemoryOrchestrator with OrchestratorConfig(vector_engine="hnsw") over the
+    first 10,240 smoke documents (full-width MiniLM, bf16, random weights): ingest, 64
+    searches and 16 recalls one at a time, a profiled window, the vector lane's
+    recall@10 against a flat engine over the same embeddings (reported), flush, close
+    and a cold reopen answering bit for bit; then a WaxSession (open_session, hnsw) over
+    the same documents and their embeddings: put_batch, commit, reopen, equal
+    searches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.embed.minilm import MiniLMEmbedder
+    from wax_tpu_torch.index.graph_cpp import CppHNSWBuilder
+    from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
+    from wax_tpu_torch.search import engine_cache
+    from wax_tpu_torch.search.vector_engines import AutoVectorEngine, FlatVectorEngine
+    from wax_tpu_torch.session import open_session
+    from wax_tpu_torch.types import SearchRequest
+
+    phase = "orch_hnsw"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, docs, queries = make_corpus(seed)
+    docs, qs = docs[:N_ORCH_HNSW], queries[0][:64]
+    tmp = Path(tempfile.mkdtemp(prefix="wax-orch-hnsw-"))
+    cfg = OrchestratorConfig(vector_engine="hnsw")
+    orch = sess = None
+    try:
+        embedder = MiniLMEmbedder(dtype=torch.bfloat16, batch_size=256, seed=0, device=dev)
+        orch = MemoryOrchestrator(tmp / "memory.mv2s", embedder, cfg, device=dev)
+        check(type(orch.engine.vector.builder) is CppHNSWBuilder,
+              f"{phase}: the engine built with {type(orch.engine.vector.builder).__name__}, not CppHNSWBuilder")
+        t0 = time.perf_counter()
+        for i in range(0, N_ORCH_HNSW, 1024):
+            orch.remember_batch(docs[i : i + 1024])
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        check(len(orch.engine.vector) == N_ORCH_HNSW, f"{phase}: {len(orch.engine.vector)} vectors after ingest")
+        t0 = time.perf_counter()
+        orch.warmup(background=False)  # the graph snapshot and one search on it
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+
+        reset_launch_counts()
+        lat_s, served = [], []
+        for q in qs:
+            t0 = time.perf_counter()
+            served.append(orch.search(q, top_k=10))
+            torch.cuda.synchronize()
+            lat_s.append(time.perf_counter() - t0)
+        lat_r = []
+        for q in qs[:16]:
+            t0 = time.perf_counter()
+            ctx = orch.recall(q)
+            torch.cuda.synchronize()
+            lat_r.append(time.perf_counter() - t0)
+            check(ctx.items and ctx.render(), f"{phase}: recall({q!r}) assembled no context")
+        serve_launches = launch_counts()
+        check(not any(serve_launches.values()),
+              f"{phase}: serving launched port kernels {serve_launches} (the hnsw lane and the scatter BM25 lane "
+              "launch none)")
+        check(all(len(r.hits) == 10 and all(np.isfinite(h.score) for h in r.hits) for r in served),
+              f"{phase}: a search returned fewer than 10 hits or a bad score")
+        check(sum(r.lane_counts.get("vector", 0) > 0 for r in served) == len(qs),
+              f"{phase}: a search had an empty vector lane")
+        log(phase, f"{N_ORCH_HNSW} docs through remember_batch (calls of 1,024) in {t_ingest:.2f} s = "
+            f"{N_ORCH_HNSW / t_ingest:.1f} docs/s (host clock ending in a sync); warmup (snapshot + one search) "
+            f"{t_warm:.2f} s")
+        for what, lat in (("search", lat_s), ("recall", lat_r)):
+            p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+            log(phase, f"{what}: {len(lat)} calls one at a time, p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+                "(host clock ending in a device sync)")
+        batches = iter([queries[1][:8], queries[1][8:16]])
+        prof = device_profile(phase, lambda: [orch.search(q, top_k=10) for q in next(batches)], iters=1)
+        log(phase, f"profiled window: {prof['events']} kernels over 8 fresh searches")
+
+        # the vector lane against a flat engine over the same embeddings (reported)
+        state = orch.engine.vector.builder.state_arrays()
+        flat = FlatVectorEngine(dim=HNSW_DIM, device=dev)
+        flat.add_batch(state["frame_ids"][state["active"]], state["vecs"][state["active"]])
+        qv = np.stack([orch.engine.embed_query(q) for q in qs])
+        _, hf = orch.engine.vector.search(qv, 10)
+        _, ff = flat.search(qv, 10)
+        lane_recall = AutoVectorEngine._recall(ff, hf)
+        del flat
+
+        t0 = time.perf_counter()
+        orch.flush()
+        t_flush = time.perf_counter() - t0
+        orch.close()
+        orch = None
+        engine_cache.clear()
+        t0 = time.perf_counter()
+        orch = MemoryOrchestrator(tmp / "memory.mv2s", embedder, cfg, device=dev)
+        t_open = time.perf_counter() - t0
+        check(engine_cache.cache_stats()["hits"] == 0, f"{phase}: the cold reopen reclaimed a parked engine")
+        stats = orch.runtime_stats()
+        check(stats["vector_engine"] == "hnsw" and type(orch.engine.vector.builder) is CppHNSWBuilder,
+              f"{phase}: reopened on {stats['vector_engine']} / {type(orch.engine.vector.builder).__name__}")
+        again = [orch.search(q, top_k=10) for q in qs]
+        same = sum(_hit_keys(a) == _hit_keys(b) for a, b in zip(served, again))
+        check(same == len(qs), f"{phase}: the cold reopen answers {len(qs) - same} of {len(qs)} searches differently")
+        orch.close()
+        orch = None
+        log(phase, f"vector lane recall@10 against a flat engine over the same {N_ORCH_HNSW} embeddings "
+            f"{lane_recall:.4f} (reported, not gated); flush {t_flush:.2f} s; cold reopen {t_open:.3f} s, "
+            f"stats vector_engine {stats['vector_engine']!r}, CppHNSWBuilder, {len(qs)} searches bit-identical")
+
+        # 2. WaxSession over the same documents and their embeddings
+        embs = np.concatenate([embedder.embed_batch(docs[i : i + 256]) for i in range(0, N_ORCH_HNSW, 256)])
+        reqs = [SearchRequest(query=q, top_k=10, embedding=embedder.embed(q)) for q in qs[:16]]
+        sess = open_session(tmp / "session.wxs", dim=HNSW_DIM, vector_preference="hnsw", device=dev)
+        t0 = time.perf_counter()
+        sess.put_batch(docs, embeddings=embs)
+        t_put = time.perf_counter() - t0
+        before = [sess.search(r) for r in reqs]
+        t0 = time.perf_counter()
+        sess.commit()
+        t_commit = time.perf_counter() - t0
+        sess.close()
+        sess = open_session(tmp / "session.wxs", dim=HNSW_DIM, vector_preference="hnsw", device=dev)
+        check(sess.engine.vector.kind == "hnsw" and type(sess.engine.vector.builder) is CppHNSWBuilder
+              and len(sess.engine.vector) == N_ORCH_HNSW and sess.engine.vector.device == dev,
+              f"{phase}: the session reopened on {sess.engine.vector.kind} with {len(sess.engine.vector)} vectors")
+        after = [sess.search(r) for r in reqs]
+        check(all(r.lane_counts.get("vector", 0) > 0 and len(r.hits) == 10 for r in before),
+              f"{phase}: a session search had an empty vector lane or fewer than 10 hits")
+        check(all(_hit_keys(a) == _hit_keys(b) for a, b in zip(before, after)),
+              f"{phase}: the reopened session answers differently")
+        log(phase, f"session: put_batch of {N_ORCH_HNSW} documents with their embeddings {t_put:.2f} s, commit "
+            f"{t_commit:.2f} s; reopened on hnsw (CppHNSWBuilder), {len(reqs)} searches bit-identical")
+    finally:
+        for o in (orch, sess):
+            if o is not None:
+                o.close()
+        engine_cache.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(phase, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+    return {"search_p50_ms": float(np.percentile(np.array(lat_s) * 1e3, 50))}
+
+
 # -------------------------------------------------------------------------------- main
 
 
@@ -2245,7 +2648,12 @@ def main(argv=None) -> int:
     path_e = auto_2m_phase(dev, args.seed, results)
     torch.cuda.empty_cache()
     path_f = orch_100k_phase(dev, args.seed, results)
+    torch.cuda.empty_cache()
+    path_g = hnsw_100k_phase(dev, args.seed, results)
+    torch.cuda.empty_cache()
+    orch_hnsw_phase(dev, args.seed)
     launches["K1"] += path_f["K1"]
+    launches["K2"] += path_g["K2"]
     launches["K3"] = path_a["K3"] + path_b["K3"] + path_f["K3"]
     launches["K4"] = path_a["K4"] + path_b["K4"]
     for kern in ("K6", "K7"):
@@ -2274,7 +2682,7 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{key: r[key] for key in ("x768", "rows_10240", "engine_1m_l2_64", "hybrid_1m_wide", "ivf_1m", "auto_2m",
-                                       "auto_2m_flat", "orch_b1") if key in r},
+                                       "auto_2m_flat", "orch_b1", "hnsw_100k") if key in r},
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -291,8 +291,9 @@ def test_make_vector_engine():
     assert isinstance(tve.make_vector_engine("flat", dim=8, device="cpu"), tve.FlatVectorEngine)
     eng = tve.make_vector_engine("ivf", dim=8, device="cpu", nprobe=3, bucket_dtype=torch.bfloat16)
     assert isinstance(eng, tve.IVFVectorEngine) and eng.nprobe == 3 and eng.kind == "ivf"
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        tve.make_vector_engine("hnsw", dim=8, device="cpu")
+    eng = tve.make_vector_engine("hnsw", dim=8, device="cpu", m=4, ef_search=24)
+    assert isinstance(eng, tve.HNSWVectorEngine) and eng.kind == "hnsw" and eng.ef_search == 24
+    assert eng.builder.m == 4 and eng.device == torch.device("cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         tve.make_vector_engine("sharded", dim=8, device="cpu")
     with pytest.raises(ValueError, match="unknown"):
@@ -304,8 +305,8 @@ def test_make_vector_engine():
 
 def test_hybrid_engine_vector_preference():
     """HybridSearchEngine's default is "auto"; below ann_rows it serves the flat
-    engine's results; "ivf" builds an IVF engine on the engine's device; "hnsw" and
-    "sharded" are not ported yet."""
+    engine's results; "ivf" and "hnsw" build their engines on the engine's device;
+    "sharded" is not ported yet."""
     rng = _rng("hybrid")
     vecs = _normalize(rng.normal(size=(700, D)).astype(np.float32))
     q = _normalize(rng.normal(size=(5, D)).astype(np.float32))
@@ -313,6 +314,8 @@ def test_hybrid_engine_vector_preference():
     engines["default"] = HybridSearchEngine(None, dim=D, device="cpu")
     engines["ivf"] = HybridSearchEngine(None, dim=D, device="cpu", vector_preference="ivf",
                                         vector_kwargs={"n_clusters": 4, "nprobe": 4})
+    engines["hnsw"] = HybridSearchEngine(None, dim=D, device="cpu", vector_preference="hnsw",
+                                         vector_kwargs={"m": 8, "ef_construction": 60})
     for e in engines.values():
         e.index_embedding_batch(np.arange(700), vecs)
     assert isinstance(engines["default"].vector, tve.AutoVectorEngine)
@@ -325,9 +328,12 @@ def test_hybrid_engine_vector_preference():
     iv, if_ = engines["ivf"].vector.search(q, K)  # 4 of 4 buckets probed: exact
     np.testing.assert_array_equal(if_, ff)
     assert engines["ivf"].vector.device == torch.device("cpu")
-    for p, item in (("hnsw", "item 6"), ("sharded", "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            HybridSearchEngine(None, dim=D, device="cpu", vector_preference=p)
+    hv, hf = engines["hnsw"].vector.search(q, K)  # a 700-row graph at ef 64: the exact top-k
+    assert engines["hnsw"].vector.kind == "hnsw" and engines["hnsw"].vector.snapshot().device == torch.device("cpu")
+    np.testing.assert_array_equal(hf, ff)
+    np.testing.assert_allclose(hv, fv, rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        HybridSearchEngine(None, dim=D, device="cpu", vector_preference="sharded")
     jeng = JaxHybrid(None, dim=D)
     jeng.vector.add_batch(np.arange(700), vecs)
     jv, jf = jeng.vector.search(q, K)

@@ -8,8 +8,9 @@ pointed at the port, so it is held the same way.
 
 Changed copies are left out by name, each for the change its header states:
 `search/match.py` (evaluated over a position index of the port builder's token log),
-`utils/profiling.py` (`device_trace` on torch.profiler) and `native/build.py` (builds
-into wax_tpu_torch/_build/native/). `search/snippet.py` needs no change: it runs the
+`utils/profiling.py` (`device_trace` on torch.profiler), `native/build.py` (builds
+into wax_tpu_torch/_build/native/), `index/graph_cpp.py` (the port's native library;
+`snapshot` passes `device` through) and `session.py` (`device`). `search/snippet.py` needs no change: it runs the
 port's `match_search` on a one-document port builder, so it is held verbatim.
 """
 from pathlib import Path
@@ -31,7 +32,7 @@ COPIES = [
     "rag/config.py", "rag/context.py", "rag/importance.py", "rag/surrogates.py", "rag/builder.py",
     "orchestrator/config.py", "orchestrator/stats.py", "utils/concurrency.py",
 ]
-CHANGED = ["search/match.py", "utils/profiling.py", "native/build.py"]
+CHANGED = ["search/match.py", "utils/profiling.py", "native/build.py", "index/graph_cpp.py", "session.py"]
 
 
 def _strip_header(text: str) -> str:

@@ -1,4 +1,5 @@
-"""Kernels K1-K9 on the GPU against their plain torch twins (needs a card).
+"""Kernels K1-K9 on the GPU against their plain torch twins, and the HNSW beam search
+on the card against its CPU run (needs a card).
 
 CUDA kernels have no CPU mode, so these tests skip without a CUDA device. They import
 no JAX, so they also run on a machine that has none; run them there with
@@ -727,3 +728,73 @@ def test_f32_products_hold_with_tf32_on(dev, path):
                     f"{path}: card places in buckets {placed[str(dev)].tolist()}, the CPU {placed['cpu'].tolist()}"
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _hnsw_grid_graph(n: int = 2048, d: int = 64):
+    """A numpy-builder graph (normalize=False) over 1/8-grid rows with a few dead rows,
+    and grid queries: every product of the beam search is exact in f32."""
+    from wax_tpu_torch.index.graph import HNSWBuilder
+
+    rng = np.random.default_rng(2)
+    b = HNSWBuilder(dim=d, m=8, ef_construction=40, normalize=False)
+    b.add_batch(np.arange(n), (rng.integers(-8, 9, (n, d)) / 8.0).astype(np.float32))
+    for fid in range(0, n, 97):
+        b.remove(fid)
+    return b, torch.from_numpy((rng.integers(-8, 9, (64, d)) / 8.0).astype(np.float32))
+
+
+def test_hnsw_search_cuda_equals_cpu_and_ignores_tf32(dev):
+    """`hnsw_search` on the card equals its CPU run bit for bit on the grid graph at ef
+    16 and 64, also with TF32 turned on process-wide, and the caller's TF32 setting is
+    restored afterwards. On random unit vectors TF32 would round both products (the
+    seed product and the per-step row product); `full_f32_matmul` keeps them f32."""
+    from wax_tpu_torch.index.graph_cpp import CppHNSWBuilder
+    from wax_tpu_torch.ops.beam_search import hnsw_search
+
+    b, q = _hnsw_grid_graph()
+    cpu, card = b.snapshot(device="cpu"), b.snapshot(device=dev)
+    assert card.device.type == "cuda" and card.adjacency.shape[1] == 24
+    for ef in (16, 64):
+        want = hnsw_search(q, cpu, k=10, ef=ef)
+        got = hnsw_search(q.to(dev), card, k=10, ef=ef)
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y)
+    rng = np.random.default_rng(4)
+    unit = rng.standard_normal((4096, 384)).astype(np.float32)
+    ub = CppHNSWBuilder(dim=384)
+    ub.add_batch(np.arange(4096), unit)
+    ug = ub.snapshot(device=dev)
+    uq = fs.normalize_rows(torch.from_numpy(rng.standard_normal((128, 384)).astype(np.float32))).to(dev)
+    off = hnsw_search(uq, ug, k=10, ef=64)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = hnsw_search(uq, ug, k=10, ef=64)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for x, y in zip(on, off):
+        assert torch.equal(x, y)
+
+
+def test_hnsw_engine_on_the_card(dev):
+    """The engine builds with the native builder and keeps its snapshot on the card;
+    its answers equal a CPU engine's over the same adds at ef 64 on rows of four
+    entries of +-0.5 (unit norm, so the engine's normalisation keeps every product
+    exact)."""
+    from wax_tpu_torch.index.graph_cpp import CppHNSWBuilder
+    from wax_tpu_torch.search.vector_engines import HNSWVectorEngine
+
+    rng = np.random.default_rng(6)
+    rows = np.zeros((3000, 32), np.float32)
+    for r in rows:
+        r[rng.choice(32, 4, replace=False)] = rng.choice([-0.5, 0.5], 4)
+    card, cpu = HNSWVectorEngine(dim=32, device=dev), HNSWVectorEngine(dim=32, device="cpu")
+    for e in (card, cpu):
+        e.add_batch(np.arange(3000), rows)
+    assert isinstance(card.builder, CppHNSWBuilder)
+    snap = card.snapshot()
+    assert snap.device.type == "cuda" and snap.emb.is_cuda and snap.adjacency.is_cuda
+    card.trace(snap)
+    cv, cf = card.search(rows[:40], 10)
+    pv, pf = cpu.search(rows[:40], 10)
+    assert np.array_equal(cf, pf) and np.array_equal(cv, pv)

@@ -15,12 +15,15 @@ import torch
 from wax_tpu_torch.embed.hash_embedder import HashEmbedder
 from wax_tpu_torch.embed.minilm import MiniLMConfig, MiniLMEmbedder
 from wax_tpu_torch.index.dense import DenseIndexBuilder
+from wax_tpu_torch.index.graph import HNSWBuilder, graph_index_from_numpy
 from wax_tpu_torch.index.ivf import build_ivf, ivf_index_from_numpy
 from wax_tpu_torch.index.lex import LexIndexBuilder
 from wax_tpu_torch.orchestrator import MemoryOrchestrator
 from wax_tpu_torch.parallel.mesh import data_mesh
 from wax_tpu_torch.search.engine import HybridSearchEngine
-from wax_tpu_torch.search.vector_engines import AutoVectorEngine, FlatVectorEngine, IVFVectorEngine, make_vector_engine
+from wax_tpu_torch.search.vector_engines import (AutoVectorEngine, FlatVectorEngine, HNSWVectorEngine, IVFVectorEngine,
+                                                 make_vector_engine)
+from wax_tpu_torch.session import open_session
 from wax_tpu_torch.utils.device import full_f32_matmul, resolve_device
 
 TINY = MiniLMConfig(vocab_size=100, hidden=16, layers=1, heads=2, intermediate=32, max_positions=16)
@@ -30,6 +33,24 @@ def _dense():
     b = DenseIndexBuilder(8)
     b.add(1, np.ones(8, np.float32))
     return b
+
+
+def _graph():
+    b = HNSWBuilder(8)
+    b.add(1, np.ones(8, np.float32))
+    return b
+
+
+def _session_device(**kw):
+    """The device an open_session over a fresh store in a temporary directory serves
+    on (it resolves the device before it opens the store)."""
+    tmp = tempfile.mkdtemp()
+    try:
+        s = open_session(Path(tmp) / "session.wxs", dim=8, **kw)
+        s.close()
+        return s.engine.device
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _orchestrator_device(**kw):
@@ -61,6 +82,14 @@ ENTRY_POINTS = {
         np.ones((1, 8), np.float32), np.ones((1, 128, 8), np.float32), np.zeros((1, 128), np.int32),
         np.zeros((1, 128), np.float32), False, **kw).device,
     "MemoryOrchestrator": _orchestrator_device,
+    "HNSWVectorEngine": lambda **kw: HNSWVectorEngine(8, **kw).device,
+    "make_vector_engine(hnsw)": lambda **kw: make_vector_engine("hnsw", 8, **kw).device,
+    "HybridSearchEngine(hnsw)": lambda **kw: HybridSearchEngine(None, dim=8, vector_preference="hnsw", **kw).vector.device,
+    "HNSWBuilder.snapshot": lambda **kw: _graph().snapshot(**kw).device,
+    "graph_index_from_numpy": lambda **kw: graph_index_from_numpy(
+        np.full((128, 48), -1, np.int32), np.ones((128, 8), np.float32), np.zeros(128, np.int32),
+        np.zeros(128, np.float32), np.zeros(8, np.int32), **kw).device,
+    "open_session": _session_device,
 }
 
 

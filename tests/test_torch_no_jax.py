@@ -47,7 +47,8 @@ def test_port_imports_without_jax():
         "utils.concurrency", "utils.device", "ops.bm25_candidates", "ops.bm25_rescore",
         "ops.bm25_chunked_pallas", "ops.chunkmax_scan", "ops.ivf_kernel", "parallel.mesh",
         "parallel.merge", "parallel.sharded_scan", "parallel.sharded_hybrid", "search.unified",
-        "index.ivf",
+        "index.ivf", "index.graph", "index.graph_cpp", "ops.beam_search", "session",
+        "orchestrator.serialization", "orchestrator.orchestrator",
     }
     assert {f"wax_tpu_torch.{m}" for m in expected} <= set(res["mods"])
 

@@ -8,7 +8,8 @@ previews, sources, lane counts, warnings) and `recall(...).render()` must be equ
 strings, once with exact postings and once under a manual postings budget (the
 candidate lane). Then stores cross between the packages in both directions, a cold
 reopen answers as a reclaimed one, a parked engine of another device is not served,
-and the cases the port leaves for later raise NotImplementedError.
+an hnsw config serves and a JAX hnsw store opens, and the cases the port leaves for
+later raise NotImplementedError.
 """
 import itertools
 
@@ -363,32 +364,71 @@ def test_parked_engine_of_another_device_is_not_served(tmp_path):
 
 
 @pytest.mark.parametrize("config,match", [
-    ({"vector_engine": "hnsw"}, "item 6"),
     ({"sharded_lanes": True}, "item 5"),
     ({"sharded_lanes": True, "vector_engine": "flat", "mesh_slices": 2}, "item 5"),
     ({"sharded_lanes": True, "vector_engine": "ivf", "mesh_tp": 2}, "item 5"),
-], ids=["hnsw", "sharded_auto", "mesh_slices", "mesh_tp"])
+], ids=["sharded_auto", "mesh_slices", "mesh_tp"])
 def test_later_slices_raise(tmp_path, config, match):
     with pytest.raises(NotImplementedError, match=match):
         _open("port", tmp_path / "m.mv2s", _config("port", **config))
     _open("port", tmp_path / "m.mv2s").close()  # no lease left behind
 
 
-def test_maintainer_and_hnsw_segment_raise(tmp_path):
+def test_hnsw_config_serves(tmp_path):
+    """OrchestratorConfig(vector_engine="hnsw") opens and serves: remember, search,
+    recall, flush, warmup and a cold reopen, on an hnsw engine throughout."""
+    path = tmp_path / "m.mv2s"
+    o = _open("port", path, _config("port", vector_engine="hnsw"))
+    try:
+        fid = o.remember("an hnsw-served note about the river").frame_ids[0]
+        o.remember_batch(["the lighthouse keeper logs the tides", "a river cabin with a green door"])
+        assert o.runtime_stats()["vector_engine"] == "hnsw" and o.engine.vector.device == torch.device("cpu")
+        hits = o.search("hnsw served river note").hits
+        assert hits and hits[0].frame_id == fid
+        assert o.recall("river cabin").render()
+        o.flush()
+        o.warmup(background=False)
+        want = _answers(o)
+    finally:
+        o.close()
+    port_cache.clear()
+    r = _open("port", path, _config("port", vector_engine="hnsw"))
+    try:
+        assert r.engine.vector.kind == "hnsw" and len(r.engine.vector) == 3
+        for a, b in zip(want, _answers(r)):
+            _assert_same_response(a, b)
+    finally:
+        r.close()
+        port_cache.clear()
+
+
+def test_maintainer_raises(tmp_path):
     o = _open("port", tmp_path / "p.mv2s")
     with pytest.raises(NotImplementedError, match="item 4"):
         o.maintainer
     o.close()
-    w = _open("jax", tmp_path / "h.mv2s", _config("jax", vector_engine="hnsw"))
-    w.remember("an hnsw-served note about the river")
-    w.flush()
-    w.close()
-    jax_cache.clear()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _open("port", tmp_path / "h.mv2s")
-    _open("jax", tmp_path / "h.mv2s", _config("jax", vector_engine="hnsw")).close()
     with pytest.raises(ValueError, match="sharded_lanes"):
         _config("port", mesh_slices=2)
+
+
+def test_jax_hnsw_store_opens_in_port(tmp_path):
+    """A store the JAX package wrote with an hnsw vector segment opens in the port (the
+    default config: the segment decides the engine) and answers as JAX does."""
+    w = _open("jax", tmp_path / "h.mv2s", _config("jax", vector_engine="hnsw"))
+    w.remember("an hnsw-served note about the river")
+    w.remember_batch(["the lighthouse keeper logs the tides", "a river cabin with a green door"])
+    w.flush()
+    w.close()
+    want = _reopened_answers("jax", tmp_path / "h.mv2s", vector_engine="hnsw")
+    jax_cache.clear()
+    r = _open("port", tmp_path / "h.mv2s")
+    try:
+        assert r.engine.vector.kind == "hnsw"
+        for a, b in zip(want, _answers(r)):
+            _assert_same_response(a, b)
+    finally:
+        r.close()
+        port_cache.clear()
 
 
 def test_remember_file_text_and_pdf(tmp_path):

@@ -19,6 +19,8 @@ both directions (`orchestrator/serialization.py`). Differences from the JAX modu
 - `warmup()` builds the snapshots under the read lock and, outside it, runs one query
   down the vector and BM25 lanes, so the first user query pays neither the kernels'
   nvcc build nor their first launch;
+- every vector engine serves (`vector_engine` "auto", "flat", "hnsw" or "ivf"), and
+  `warmup()` runs one search on the engine's snapshot through its `trace`;
 - `sharded_lanes=True` serves on the one-device mesh with the flat or IVF engine; with
   `vector_engine="auto"` (the mesh-sharded flat engine), `mesh_slices > 1` or
   `mesh_tp > 1` it raises NotImplementedError (ROADMAP queue 1, item 5);

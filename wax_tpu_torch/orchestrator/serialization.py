@@ -13,7 +13,7 @@ PyTorch port of `wax_tpu.orchestrator.serialization`: the blobs and attrs are th
 package's, byte for byte, so a store written by either package opens in the other.
 Engines are rebuilt on an explicit `device`. A `sharded` segment is layout-free and
 loads as a flat engine (the mesh-sharded engine waits for multi-GPU, ROADMAP queue 1,
-item 5); an `hnsw` segment raises NotImplementedError (item 6).
+item 5).
 """
 from __future__ import annotations
 
@@ -75,6 +75,8 @@ DENSE_FORMAT = "wxs-dense-npz-v1"  # read-compat only (round-2 stores)
 DENSE_FORMAT_V2 = "wxs-dense-raw-v2"  # written: sequential .npy container
 LEX_FORMAT = "wxs-lex-json-v1"  # read-compat only (round-2 stores)
 LEX_FORMAT_V2 = "wxs-lex-cols-v2"  # written format: columnar arrays, frozen fast load
+HNSW_FORMAT = "wxs-hnsw-npz-v1"  # read-compat only
+HNSW_FORMAT_V2 = "wxs-hnsw-raw-v2"
 
 
 def serialize_dense(builder: DenseIndexBuilder) -> tuple[bytes, dict[str, str]]:
@@ -115,7 +117,7 @@ def deserialize_dense(blob: bytes, attrs: dict[str, str]) -> DenseIndexBuilder:
 def serialize_vector_engine(
     engine, embedder_identity: str | None = None
 ) -> tuple[bytes, dict[str, str]]:
-    """Serialize a flat, auto or IVF vector engine into a segment blob.
+    """Serialize a flat, auto, HNSW or IVF vector engine into a segment blob.
 
     When `embedder_identity` is given it is recorded in the segment attrs so a later
     open can detect that the index was built by a different provider (the analogue of
@@ -134,6 +136,16 @@ def _serialize_vector_engine(engine) -> tuple[bytes, dict[str, str]]:
         blob, attrs = serialize_dense(engine.builder)
         attrs["engine"] = engine.kind
         return blob, attrs
+    if engine.kind == "hnsw":
+        arrays = engine.builder.state_arrays()
+        attrs = {
+            "format": HNSW_FORMAT_V2,
+            "engine": "hnsw",
+            "dim": str(engine.dim),
+            "count": str(len(engine)),
+            "ef_search": str(engine.ef_search),
+        }
+        return save_arrays(dict(arrays)), attrs
     if engine.kind == "ivf":
         # the raw vectors are the source of truth; buckets rebuild deterministically
         blob, attrs = serialize_dense(engine.builder)
@@ -151,7 +163,8 @@ def _serialize_vector_engine(engine) -> tuple[bytes, dict[str, str]]:
 def deserialize_vector_engine(blob: bytes, attrs: dict[str, str], device=None):
     """The segment's engine with its snapshots on `device` (None: the current CUDA
     device). A `sharded` segment (layout-free) loads as a flat engine."""
-    from wax_tpu_torch.search.vector_engines import AutoVectorEngine, FlatVectorEngine, IVFVectorEngine
+    from wax_tpu_torch.search.vector_engines import (AutoVectorEngine, FlatVectorEngine, HNSWVectorEngine,
+                                                     IVFVectorEngine)
 
     kind = attrs.get("engine", "flat")
     if kind in ("flat", "sharded", "auto"):
@@ -163,10 +176,15 @@ def deserialize_vector_engine(blob: bytes, attrs: dict[str, str], device=None):
         eng.builder = builder
         return eng
     if kind == "hnsw":
-        raise NotImplementedError(
-            "hnsw vector segments need the HNSW engine, which is not ported yet "
-            "(ROADMAP queue 1, item 6: HNSW)"
-        )
+        if blob[:2] == b"PK":  # legacy npz (v1)
+            data = np.load(io.BytesIO(blob))
+            arrays = {k: data[k] for k in data.files}
+        else:
+            arrays = load_arrays(blob)
+        eng = HNSWVectorEngine(dim=int(attrs["dim"]), device=device)
+        eng.builder = type(eng.builder).from_state_arrays(arrays, dim=int(attrs["dim"]))
+        eng.ef_search = int(attrs.get("ef_search", "64"))
+        return eng
     if kind == "ivf":
         builder = deserialize_dense(blob, attrs)
         spill_raw = attrs.get("spill", "0.0")

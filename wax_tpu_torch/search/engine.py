@@ -34,8 +34,8 @@ class HybridSearchEngine:
     (the orchestrator wires it to its structured memory: the structured lane).
 
     `vector_preference` picks the engine (`make_vector_engine`): "auto" (default; the
-    exact scan below 2,097,152 rows, then an IVF engine of measured recall), "flat" or
-    "ivf"; `vector_kwargs` go to it.
+    exact scan below 2,097,152 rows, then an IVF engine of measured recall), "flat",
+    "hnsw" or "ivf", built on `device`; `vector_kwargs` go to it.
 
     `lex_postings_budget` caps each term's postings (None exact, "auto" exact below
     256K rows, or an int); a truncated snapshot carries the exact-rescore forward

@@ -1,12 +1,14 @@
-"""Vector engines: the flat (brute-force scan), IVF and recall-measuring auto engines.
+"""Vector engines: the flat (brute-force scan), HNSW, IVF and recall-measuring auto engines.
 
-PyTorch port of `wax_tpu.search.vector_engines`. Each engine keeps a
-`DenseIndexBuilder` on the host and a device snapshot cached per builder generation;
-`search()` runs on the snapshot's device and returns numpy arrays.
-`FlatVectorEngine` scans with `flat_scan_topk`; `IVFVectorEngine` probes k-means
-buckets (`index/ivf.py`, kernel K7); `AutoVectorEngine` serves the flat scan below
-AUTO_ANN_ROWS rows and from there an IVF engine whose sampled recall it has measured.
-HNSW and the mesh-sharded flat engine come in later slices.
+PyTorch port of `wax_tpu.search.vector_engines`. Each engine keeps a host-side
+builder and a device snapshot cached per builder generation; `search()` runs on the
+snapshot's device and returns numpy arrays. `FlatVectorEngine` scans with
+`flat_scan_topk`; `HNSWVectorEngine` builds a graph on the host (`index/graph_cpp.py`,
+the native builder) and answers by the batched beam search (`ops/beam_search.py`);
+`IVFVectorEngine` probes k-means buckets (`index/ivf.py`, kernel K7);
+`AutoVectorEngine` serves the flat scan below AUTO_ANN_ROWS rows and from there an IVF
+engine whose sampled recall it has measured (it never selects HNSW, as in JAX). The
+mesh-sharded flat engine comes with multi-GPU serving (ROADMAP queue 1, item 5).
 
 Top-k is clamped at MAX_TOP_K = 10,000, as in the JAX package.
 """
@@ -20,6 +22,7 @@ import torch
 
 from wax_tpu_torch.index.dense import DenseIndexBuilder, Similarity
 from wax_tpu_torch.index.ivf import IVFIndex, _assign_scores, build_ivf, ivf_search_topk
+from wax_tpu_torch.ops.beam_search import hnsw_search
 from wax_tpu_torch.ops.flat_scan import flat_scan_topk
 from wax_tpu_torch.ops.ivf_kernel import ivf_search_topk_pallas
 from wax_tpu_torch.ops.topk import stable_top_k
@@ -30,6 +33,7 @@ __all__ = [
     "VectorEngine",
     "AutoVectorEngine",
     "FlatVectorEngine",
+    "HNSWVectorEngine",
     "IVFVectorEngine",
     "make_vector_engine",
     "MAX_TOP_K",
@@ -143,6 +147,74 @@ class FlatVectorEngine(FreshLockOnCopyMixin):
             vals = np.pad(vals, ((0, 0), (0, pad)), constant_values=-np.inf)
             fids = np.pad(fids, ((0, 0), (0, pad)), constant_values=-1)
         return vals, fids
+
+    def __len__(self):
+        return len(self.builder)
+
+    def __contains__(self, fid):
+        return fid in self.builder
+
+
+class HNSWVectorEngine(FreshLockOnCopyMixin):
+    """Approximate graph engine (M 16 by default, as the reference's USearch engine).
+    It builds with the native C++ builder when the native library builds, else with
+    the numpy builder (host code either way); its snapshot lives on `device`."""
+
+    kind = "hnsw"
+
+    def __init__(
+        self,
+        dim: int,
+        m: int = 16,
+        ef_construction: int = 100,
+        ef_search: int = 64,
+        device: str | torch.device | None = None,
+    ):
+        """`device` holds the snapshot (None: the current CUDA device)."""
+        from wax_tpu_torch.index.graph_cpp import best_hnsw_builder
+
+        self._snap_lock = threading.Lock()
+        self.device = resolve_device(device)
+        self.builder = best_hnsw_builder(dim, m=m, ef_construction=ef_construction)
+        self.ef_search = ef_search
+        self._snap = None
+        self._snap_gen = -1
+        self.snapshot_count = 0
+
+    @property
+    def dim(self) -> int:
+        return self.builder.dim
+
+    def add(self, frame_id, vec):
+        self.builder.add(frame_id, vec)
+
+    def add_batch(self, frame_ids, vecs):
+        self.builder.add_batch(frame_ids, vecs)
+
+    def remove(self, frame_id) -> bool:
+        return self.builder.remove(frame_id)
+
+    def snapshot(self):
+        with self._snap_lock:
+            if self._snap is None or self._snap_gen != self.builder.generation:
+                self._snap = self.builder.snapshot(device=self.device)
+                self._snap_gen = self.builder.generation
+                self.snapshot_count += 1
+            return self._snap
+
+    def trace(self, snap) -> None:
+        """One B 1 search on a GIVEN snapshot (see FlatVectorEngine.trace)."""
+        hnsw_search(torch.zeros((1, snap.dim), device=snap.device), snap, k=1, ef=max(self.ef_search, 1))
+
+    def search(self, queries, k: int):
+        """Top-k (scores, frame_ids) as numpy arrays [B, k] (see FlatVectorEngine), by
+        the beam search at ef = max(ef_search, k)."""
+        k = min(k, MAX_TOP_K)
+        if len(self.builder) == 0:
+            return _empty_result(queries, k)
+        graph = self.snapshot()
+        vals, fids = hnsw_search(_query_tensor(queries, graph.device), graph, k=k, ef=max(self.ef_search, k))
+        return vals.cpu().numpy(), fids.cpu().numpy()
 
     def __len__(self):
         return len(self.builder)
@@ -479,16 +551,16 @@ class AutoVectorEngine(FreshLockOnCopyMixin):
 
 def make_vector_engine(preference: str, dim: int, **kw):
     """preference: "auto" (AutoVectorEngine: the exact scan below AUTO_ANN_ROWS, then
-    measured-recall IVF with an exact fallback), "flat" or "ivf"; keyword arguments go
-    to the engine (`device` among them)."""
+    measured-recall IVF with an exact fallback), "flat", "hnsw" or "ivf"; keyword
+    arguments go to the engine (`device` among them)."""
     if preference == "auto":
         return AutoVectorEngine(dim=dim, **kw)
     if preference == "flat":
         return FlatVectorEngine(dim=dim, **kw)
+    if preference == "hnsw":
+        return HNSWVectorEngine(dim=dim, **kw)
     if preference == "ivf":
         return IVFVectorEngine(dim=dim, **kw)
     if preference == "sharded":
         raise NotImplementedError("the sharded flat engine is not ported yet (ROADMAP queue 1, item 5: multi-GPU)")
-    if preference == "hnsw":
-        raise NotImplementedError("the HNSW engine is not ported yet (ROADMAP queue 1, item 6: HNSW)")
     raise ValueError(f"unknown vector engine preference {preference!r}")
