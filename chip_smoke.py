@@ -82,7 +82,7 @@ Phases, each printing lines tagged with its name:
             served recall@10 against the flat lane >= 0.92 on an IVF route; K7 held at
             the served probes ("auto_2m" under K7)
   orch_100k path (f): the MemoryOrchestrator users call, in a temporary directory that
-            it removes: a .mv2s store, remember_batch over smoke_100k's 102,400
+            [orch_maint] then works on: a .mv2s store, remember_batch over smoke_100k's 102,400
             documents in calls of 1,024 (full-width MiniLM, bf16, random weights; the
             default "auto" vector engine is flat at capacity 131,072 x 384 f32), flush;
             256 search(top_k=10) and 256 recall() calls one at a time (p50, p99,
@@ -98,6 +98,15 @@ Phases, each printing lines tagged with its name:
             as the card did once the CPU is given the card's vector lane; fused top-10
             equal for >= ORCH_FUSED_FLOOR of queries (the 99% that was asked for is
             not met: near-tie swaps in the vector lane reorder 1.6-4.7% of them)
+  orch_maint maintenance on [orch_100k]'s store (no second ingest): forget 10,240 of
+            its documents (10%, drawn from --seed; seconds); 64 searches at B 1 with no
+            forgotten frame id in any lane; dead_bytes(); compact_indexes() (seconds;
+            lex and vector rows down to the live count); the 64 searches again, K1
+            held and timed at the compacted shape ("orch_maint" under K1);
+            rewrite_live_set() (frames and bytes before and after, seconds; the file
+            shrinks; the 64 answers equal the compacted ones under the id remap, bit
+            for bit); verify(deep=True) and a cold reopen answering bit for bit; the
+            rewritten file read-only on the CPU against the card at [orch_100k]'s gates
   hnsw_100k path (g): BASELINE config 3: make_vector_engine("hnsw", dim=384) (the
             native CppHNSWBuilder, required; M 16, efConstruction 100) over 102,400
             hard-clustered unit rows (scripts/hnsw_parity.py's "hard" set: 200 centres,
@@ -119,6 +128,18 @@ Phases, each printing lines tagged with its name:
             reopen (stats "hnsw", CppHNSWBuilder, the 64 answers bit-identical); then
             open_session(..., vector_preference="hnsw"): put_batch of the documents with
             their embeddings, commit, reopen, 16 searches bit-identical
+  orch_maint_hnsw maintenance on [orch_hnsw]'s store: optimize_surrogates() twice (the
+            second finds every surrogate current); forget 10% and rewrite_live_set():
+            the graph rebuilt by CppHNSWBuilder on the card, the vector lane's
+            recall@10 against a flat engine within 0.02 of [orch_hnsw]'s, a cold reopen
+            bit-identical. Then PhotoRAGOrchestrator(device=dev): 1,024 synthetic
+            224x224x3 images, 4 OCR blocks each (a stub provider), a seeded
+            deterministic multimodal embedder of width 384 (more than 2,048 inner
+            rows, so recall runs through K1), 64 recalls; forget 10% of the assets,
+            compact, recall, rewrite: the asset roots follow the remap and the recalls
+            equal the compacted ones under it. VideoRAGOrchestrator: 256 videos of 16
+            transcript segments, the same steps with recall(top_k=4) (the default
+            top_k 8 asks the flat lane for 256 hits, past K1's k 128)
 
 Each serving phase sets the launch counts to 0 just before it runs and reads them just
 after; every kernel of its path must have launched. Each profiled window also prints its
@@ -134,9 +155,11 @@ import collections
 import contextlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2028,24 +2051,64 @@ def _fused_agree(phase, what, orch_cpu, requests, card, cpu, vec_card, vec_cpu) 
     return differ
 
 
-def orch_100k_phase(dev, seed: int, results: dict) -> dict:
+def _orch_lanes(orch, requests):
+    """(BM25 lane, vector lane) lists of each request, as unified_search runs them."""
+    from wax_tpu_torch.search.unified import _bm25_lane, _vector_lane
+
+    bm = [_bm25_lane(orch.engine, r.query, FETCH_K)[0] for r in requests]
+    ve = [_vector_lane(orch.engine, r, FETCH_K) for r in requests]
+    return bm, ve
+
+
+def _k1_b1_case(phase: str, dev, snap, embedding, label: str) -> dict:
+    """K1 at an orchestrator's own shape (B 1 over its dense snapshot, k 24) against
+    its plain twin, timed beside its bound and torch.matmul f32."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.ops import flat_scan as fs
+
+    n, d = snap.emb.shape
+    q1 = torch.from_numpy(embedding / np.linalg.norm(embedding))[None, :].to(dev)
+    bias, tn = fs._index_bias(snap), fs._pick_tn(n)
+    k = FETCH_K
+
+    def run_kernel():
+        return fs.packed_sel_tiles(q1, snap.emb, bias, k, tn)
+
+    def run_plain():
+        return fs._packed_sel_topk_plain(q1, snap.emb, bias, k, tn)
+
+    kv, kr = fs._merge_tiles(*fs._decode_packed(run_kernel(), k, tn), k)
+    pv, pr = fs._merge_tiles(*fs._decode_packed(run_plain(), k, tn), k)
+    err, overlap = _topk_agree(phase, f"K1 B 1 ({label})", kv, kr, pv, pr,
+                               fs._scores_f32(q1, snap.emb) + bias[None, :], k, False, TRUNC_REL)
+    out_bytes = (n // tn) * k * 4
+    nbytes = 4 * (d + n * d) + 4 * n + out_bytes
+    rec = {"ms": queued_ms(run_kernel), "plain_ms": queued_ms(run_plain), "max_abs_err": err}
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * 2 * n * d, "tf32")
+    rec["library_ms"] = queued_ms(lambda: torch.matmul(q1, snap.emb.t()))
+    log(phase, f"K1 at B 1 x {n} x {d} {snap.emb.dtype}, k {k} (tn {tn}): agree (max_abs_err={err:.3g}, "
+        f"overlap={overlap:.4f}); kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} bytes), library (torch.matmul f32) "
+        f"{rec['library_ms']:.4f} ms (each queued behind a sleep kernel, CUDA events)")
+    return rec
+
+
+def orch_100k_phase(dev, seed: int, results: dict, tmp: Path) -> dict:
     """path (f): the MemoryOrchestrator a user calls, over the smoke corpus's 102,400
     documents with the full-width MiniLM (random weights, bf16) in a temporary
     directory: remember_batch in calls of 1,024, flush, 256 search and 256 recall
     calls, a profiled window, a cold reopen (bit-identical answers), a read-only
     reopen with a manual postings budget (the candidate lane and K3), the same
-    requests on the CPU, and K1 timed at the orchestrator's own B 1 shape."""
-    import shutil
-    import tempfile
-
+    requests on the CPU, and K1 timed at the orchestrator's own B 1 shape. The store
+    stays in `tmp` for [orch_maint]."""
     import numpy as np
     import torch
 
     from wax_tpu_torch.embed.minilm import MiniLMEmbedder
-    from wax_tpu_torch.ops import flat_scan as fs
     from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
     from wax_tpu_torch.search import engine_cache
-    from wax_tpu_torch.search.unified import _bm25_lane, _vector_lane
     from wax_tpu_torch.types import SearchRequest
     from wax_tpu_torch.utils.profiling import reset_spans, span_stats
 
@@ -2054,18 +2117,11 @@ def orch_100k_phase(dev, seed: int, results: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _, docs, queries = make_corpus(seed)
     qs = queries[0]
-    tmp = Path(tempfile.mkdtemp(prefix="wax-orch-100k-"))
     path = tmp / "memory.mv2s"
 
     def spans(prefix: str) -> str:
         return "; ".join(f"{k} n={v['count']} total={v['total_ms']:.1f} p50={v['p50_ms']:.3f} p95={v['p95_ms']:.3f} ms"
                          for k, v in sorted(span_stats().items()) if k.startswith(prefix))
-
-    def lanes(orch, requests):
-        """(BM25 lane, vector lane) lists of each request, as unified_search runs them."""
-        bm = [_bm25_lane(orch.engine, r.query, FETCH_K)[0] for r in requests]
-        ve = [_vector_lane(orch.engine, r, FETCH_K) for r in requests]
-        return bm, ve
 
     orch = None
     try:
@@ -2129,7 +2185,7 @@ def orch_100k_phase(dev, seed: int, results: dict) -> dict:
             f"{sorted(collections.Counter(r.query_type.value for r in served).items())}")
         # the card's query vectors (memoised by the searches above) and lanes, for the CPU
         reqs = [SearchRequest(query=q, top_k=10, embedding=orch.engine.embed_query(q)) for q in qs]
-        bm_card, vec_card = lanes(orch, reqs)
+        bm_card, vec_card = _orch_lanes(orch, reqs)
 
         # 3. profile: 32 fresh searches (encoder included) in the window
         batches = iter([queries[1][:32], queries[1][32:64]])
@@ -2140,32 +2196,10 @@ def orch_100k_phase(dev, seed: int, results: dict) -> dict:
         # 4. K1 at the orchestrator's own shape: B 1 over the live engine's snapshot, k 24
         snap = orch.engine.vector.snapshot()
         n, d = snap.emb.shape
-        q1 = torch.from_numpy(reqs[0].embedding / np.linalg.norm(reqs[0].embedding))[None, :].to(dev)
-        bias, tn = fs._index_bias(snap), fs._pick_tn(n)
-        k = FETCH_K
         check(n == 131_072 and snap.emb.dtype == torch.float32, f"{phase}: dense snapshot {n} x {d} {snap.emb.dtype}")
-
-        def run_kernel():
-            return fs.packed_sel_tiles(q1, snap.emb, bias, k, tn)
-
-        def run_plain():
-            return fs._packed_sel_topk_plain(q1, snap.emb, bias, k, tn)
-
-        kv, kr = fs._merge_tiles(*fs._decode_packed(run_kernel(), k, tn), k)
-        pv, pr = fs._merge_tiles(*fs._decode_packed(run_plain(), k, tn), k)
-        err, overlap = _topk_agree(phase, "K1 B 1", kv, kr, pv, pr, fs._scores_f32(q1, snap.emb) + bias[None, :],
-                                   k, False, TRUNC_REL)
-        out_bytes = (n // tn) * k * 4
-        nbytes = 4 * (d + n * d) + 4 * n + out_bytes
-        rec = {"ms": queued_ms(run_kernel), "plain_ms": queued_ms(run_plain), "max_abs_err": err}
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * 2 * n * d, "tf32")
-        rec["library_ms"] = queued_ms(lambda: torch.matmul(q1, snap.emb.t()))
+        rec = _k1_b1_case(phase, dev, snap, reqs[0].embedding, "orch_100k")
         results["K1"]["orch_b1"] = rec
-        results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], err)
-        log(phase, f"K1 at B 1 x {n} x {d} f32, k {k} (tn {tn}): agree (max_abs_err={err:.3g}, overlap={overlap:.4f}); "
-            f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}: {nbytes} bytes), library (torch.matmul f32) {rec['library_ms']:.4f} ms "
-            "(each queued behind a sleep kernel, CUDA events)")
+        results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], rec["max_abs_err"])
 
         # 5. cold reopen: no parked engines, the segments deserialized
         orch.close()
@@ -2202,7 +2236,7 @@ def orch_100k_phase(dev, seed: int, results: dict) -> dict:
         budget_launches = launch_counts()
         check(budget_launches["K3"] > 0, f"{phase}: the budgeted reopen did not launch K3")
         check(all(len(r.hits) == 10 for r in served_b), f"{phase}: a budgeted search returned fewer than 10 hits")
-        bm_card_b, vec_card_b = lanes(orch, bq)
+        bm_card_b, vec_card_b = _orch_lanes(orch, bq)
         log(phase, f"budgeted reopen (lex_postings_budget={ORCH_BUDGET}, read-only): {int((dfs > ORCH_BUDGET).sum())} "
             f"terms above the budget, max df {int(dfs.max())}; 64 searches launched K3 {budget_launches['K3']} and "
             f"K1 {budget_launches['K1']} times; warnings on {sum(bool(r.warnings) for r in served_b)} responses")
@@ -2218,7 +2252,7 @@ def orch_100k_phase(dev, seed: int, results: dict) -> dict:
             t0 = time.perf_counter()
             orch = MemoryOrchestrator(path, embedder, cfg, readonly=True, device="cpu")
             cpu = [orch.search(r) for r in reqs_c]
-            bm_cpu, vec_cpu = lanes(orch, reqs_c)
+            bm_cpu, vec_cpu = _orch_lanes(orch, reqs_c)
             qtexts = [r.query for r in reqs_c]
             _lanes_agree(phase, f"{label} BM25", qtexts, bm_c, bm_cpu)
             vec = _vector_lanes_agree(phase, f"{label} vector", reqs_c, vec_c, vec_cpu, orch.engine.vector.snapshot())
@@ -2239,10 +2273,185 @@ def orch_100k_phase(dev, seed: int, results: dict) -> dict:
         if orch is not None:
             orch.close()
         engine_cache.clear()
-        shutil.rmtree(tmp, ignore_errors=True)
     log(phase, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"phase seconds {time.perf_counter() - t_phase:.1f}")
-    return {"K1": serve_launches["K1"], "K3": budget_launches["K3"]}
+    return {"K1": serve_launches["K1"], "K3": budget_launches["K3"], "queries": qs}
+
+
+# --------------------------------------------------------------------------- maintenance
+
+N_MAINT_FORGET = 10_240  # [orch_maint]: 10% of [orch_100k]'s documents
+N_MAINT_QUERIES = 64
+
+
+def _document_ids(orch) -> list:
+    from wax_tpu_torch.types import FrameKind, FrameStatus
+
+    return [fid for fid in range(orch.store.frame_count())
+            if (m := orch.store.frame_meta(fid)) is not None and m.kind == FrameKind.DOCUMENT.value
+            and m.status == FrameStatus.ACTIVE.value]
+
+
+def _forget(phase: str, orch, fids) -> float:
+    """Forget `fids` one call at a time; the host seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    for fid in fids:
+        check(orch.forget(fid), f"{phase}: forget({fid}) found nothing to forget")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def orch_maint_phase(dev, seed: int, results: dict, tmp: Path, qs: list) -> dict:
+    """[orch_maint]: maintenance on [orch_100k]'s store in `tmp` (102,400 documents,
+    full-width MiniLM, the default auto engine on K1 at B 1, exact BM25): forget 10%,
+    searches with no forgotten id in any lane, dead_bytes, compact_indexes (K1 held at
+    the compacted shape), rewrite_live_set (answers equal the compacted ones under the
+    id remap, bit for bit), verify(deep=True), a cold reopen answering bit for bit and
+    the rewritten file read-only on the CPU against the card."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.embed.minilm import MiniLMEmbedder
+    from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
+    from wax_tpu_torch.search import engine_cache
+    from wax_tpu_torch.types import SearchRequest
+    from wax_tpu_torch.utils.profiling import reset_spans, span_stats
+
+    phase = "orch_maint"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    path = tmp / "memory.mv2s"
+    cfg = OrchestratorConfig()
+    embedder = MiniLMEmbedder(dtype=torch.bfloat16, batch_size=256, seed=0, device=dev)
+    k1_launches = 0
+    orch = None
+    try:
+        engine_cache.clear()
+        orch = MemoryOrchestrator(path, embedder, cfg, device=dev)
+        docs = _document_ids(orch)
+        n_docs = len(docs)
+        check(n_docs == len(orch.engine.lex) == len(orch.engine.vector),
+              f"{phase}: the store holds {n_docs} documents, {len(orch.engine.lex)} lex rows, "
+              f"{len(orch.engine.vector)} vectors")
+        gone = sorted(np.random.default_rng(seed + 13).choice(docs, N_MAINT_FORGET, replace=False).tolist())
+        t_forget = _forget(phase, orch, gone)
+        gone_set, live = set(gone), n_docs - len(gone)
+        log(phase, f"forgot {len(gone)} of {n_docs} documents (drawn from --seed) in {t_forget:.2f} s = "
+            f"{1e3 * t_forget / len(gone):.3f} ms a forget (host clock ending in a sync)")
+        reqs = [SearchRequest(query=q, top_k=10, embedding=orch.engine.embed_query(q)) for q in qs[:N_MAINT_QUERIES]]
+
+        def answers(label: str, forgotten=gone_set):
+            """The requests one at a time (K1 counted over them), then their lanes; no
+            forgotten frame id may appear in a hit or a lane."""
+            nonlocal k1_launches
+            reset_spans()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = [orch.search(r) for r in reqs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1 = launch_counts()["K1"]
+            vec_calls = span_stats()["search.vector_lane"]["count"]
+            check(k1 == vec_calls == len(reqs), f"{phase}: {label}: K1 launched {k1} times for {vec_calls} "
+                  f"vector-lane calls of {len(reqs)} searches")
+            k1_launches += k1
+            bm, ve = _orch_lanes(orch, reqs)
+            for r, resp, b, v in zip(reqs, out, bm, ve):
+                ids = {h.frame_id for h in resp.hits} | {f for f, _ in b} | {f for f, _ in v}
+                check(not ids & forgotten, f"{phase}: {label}: forgotten frames {sorted(ids & forgotten)[:4]} "
+                      f"answer {r.query!r}")
+                check(len(resp.hits) == 10 and all(np.isfinite(h.score) for h in resp.hits),
+                      f"{phase}: {label}: search({r.query!r}) gave {len(resp.hits)} hits or a bad score")
+            log(phase, f"{label}: {len(reqs)} searches in {wall:.2f} s (p50 of the host clock not taken), K1 "
+                f"{k1} launches; no forgotten id in any hit or lane")
+            return out, (bm, ve)
+
+        answers("after the forget")
+        t0 = time.perf_counter()
+        dead = orch.maintainer.dead_bytes()
+        log(phase, f"dead_bytes() {dead} ({time.perf_counter() - t0:.2f} s); file {path.stat().st_size} bytes")
+        check(dead > 0, f"{phase}: dead_bytes() is 0 after {len(gone)} forgets")
+
+        t0 = time.perf_counter()
+        orch.maintainer.compact_indexes()
+        torch.cuda.synchronize()
+        t_compact = time.perf_counter() - t0
+        lex, vstate = orch.engine.lex, orch.engine.vector.builder.state_arrays()
+        check(len(lex) == len(lex._doc_len) == live and len(vstate["frame_ids"]) == live and vstate["active"].all(),
+              f"{phase}: compaction left {len(lex._doc_len)} lex rows and {len(vstate['frame_ids'])} vector rows "
+              f"for {live} live documents")
+        log(phase, f"compact_indexes() {t_compact:.2f} s (host clock ending in a sync, the flush included): lex and "
+            f"vector rows {live}")
+        compacted, _ = answers("compacted")
+        snap = orch.engine.vector.snapshot()
+        rec = _k1_b1_case(phase, dev, snap, reqs[0].embedding, "compacted")
+        results["K1"]["orch_maint"] = rec
+        results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], rec["max_abs_err"])
+
+        remaps = []
+        orch.maintainer.remap_listeners.append(remaps.append)
+        t0 = time.perf_counter()
+        rep = orch.maintainer.rewrite_live_set()
+        torch.cuda.synchronize()
+        t_rewrite = time.perf_counter() - t0
+        check(rep.executed and rep.frames_after < rep.frames_before and rep.bytes_after < rep.bytes_before
+              and len(remaps) == 1, f"{phase}: rewrite {rep}")
+        (remap,) = remaps
+        log(phase, f"rewrite_live_set() {t_rewrite:.2f} s (its own elapsed {rep.elapsed_ms / 1e3:.2f} s): frames "
+            f"{rep.frames_before} -> {rep.frames_after}, bytes {rep.bytes_before} -> {rep.bytes_after}")
+        moved = {remap[f] for f in gone_set if f in remap}
+        check(not moved, f"{phase}: the remap keeps {len(moved)} forgotten frames")
+        rewritten, _ = answers("rewritten", set())
+        for r, a, b in zip(reqs, compacted, rewritten):
+            check([(remap[f], s_, p_) for f, s_, p_ in _hit_keys(a)] == _hit_keys(b),
+                  f"{phase}: the rewritten store answers {r.query!r} otherwise than the compacted one under the "
+                  "remap")
+        log(phase, f"the {len(reqs)} rewritten answers equal the compacted ones under the remap (ids mapped; scores, "
+            "previews and order bit for bit)")
+
+        t0 = time.perf_counter()
+        verified = orch.store.verify(deep=True)
+        check(verified["ok"], f"{phase}: verify(deep=True) {verified}")
+        t_verify = time.perf_counter() - t0
+        orch.close()
+        orch = None
+        engine_cache.clear()
+        t0 = time.perf_counter()
+        orch = MemoryOrchestrator(path, embedder, cfg, device=dev)
+        t_open = time.perf_counter() - t0
+        reopened, (bm_card, vec_card) = answers("cold reopen", set())
+        check(all(_hit_keys(a) == _hit_keys(b) for a, b in zip(rewritten, reopened)),
+              f"{phase}: the cold reopen answers otherwise than the rewritten store")
+        log(phase, f"verify(deep=True) ok in {t_verify:.2f} s; cold reopen {t_open:.3f} s, {len(reqs)} searches "
+            "bit-identical")
+        orch.close()
+        orch = None
+
+        engine_cache.clear()
+        t0 = time.perf_counter()
+        orch = MemoryOrchestrator(path, embedder, cfg, readonly=True, device="cpu")
+        cpu = [orch.search(r) for r in reqs]
+        bm_cpu, vec_cpu = _orch_lanes(orch, reqs)
+        _lanes_agree(phase, "BM25", [r.query for r in reqs], bm_card, bm_cpu)
+        vec = _vector_lanes_agree(phase, "vector", reqs, vec_card, vec_cpu, orch.engine.vector.snapshot())
+        fdiff = _fused_agree(phase, "rewritten", orch, reqs, reopened, cpu, vec_card, vec_cpu)
+        orch.close()
+        orch = None
+        equal = (len(reqs) - fdiff) / len(reqs)
+        log(phase, f"CPU cross-check of the rewritten file ({len(reqs)} requests, {time.perf_counter() - t0:.1f} s): "
+            f"BM25 lanes equal; vector lanes equal on {len(reqs) - vec['differ']}, the rest near-ties (id overlap "
+            f"{vec['overlap']:.4f}); fused top-10 equal on {len(reqs) - fdiff} ({100 * equal:.1f}%)")
+        check(equal >= ORCH_FUSED_FLOOR, f"{phase}: fused top-10 equal on {100 * equal:.1f}% of queries, under the "
+              f"floor {100 * ORCH_FUSED_FLOOR:.0f}%")
+    finally:
+        if orch is not None:
+            orch.close()
+        engine_cache.clear()
+    log(phase, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return {"K1": k1_launches}
 
 
 # ---------------------------------------------------------------------------------- HNSW
@@ -2462,17 +2671,14 @@ def hnsw_100k_phase(dev, seed: int, results: dict) -> dict:
     return {"K2": gt["K2"], "sweep": sweep, "build_s": t_build, "snapshot_s": t_snap}
 
 
-def orch_hnsw_phase(dev, seed: int) -> dict:
+def orch_hnsw_phase(dev, seed: int, tmp: Path) -> dict:
     """The MemoryOrchestrator with OrchestratorConfig(vector_engine="hnsw") over the
     first 10,240 smoke documents (full-width MiniLM, bf16, random weights): ingest, 64
     searches and 16 recalls one at a time, a profiled window, the vector lane's
     recall@10 against a flat engine over the same embeddings (reported), flush, close
     and a cold reopen answering bit for bit; then a WaxSession (open_session, hnsw) over
     the same documents and their embeddings: put_batch, commit, reopen, equal
-    searches."""
-    import shutil
-    import tempfile
-
+    searches. The store stays in `tmp` for [orch_maint_hnsw]."""
     import numpy as np
     import torch
 
@@ -2489,7 +2695,6 @@ def orch_hnsw_phase(dev, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _, docs, queries = make_corpus(seed)
     docs, qs = docs[:N_ORCH_HNSW], queries[0][:64]
-    tmp = Path(tempfile.mkdtemp(prefix="wax-orch-hnsw-"))
     cfg = OrchestratorConfig(vector_engine="hnsw")
     orch = sess = None
     try:
@@ -2601,10 +2806,266 @@ def orch_hnsw_phase(dev, seed: int) -> dict:
             if o is not None:
                 o.close()
         engine_cache.clear()
-        shutil.rmtree(tmp, ignore_errors=True)
     log(phase, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds "
         f"{time.perf_counter() - t_phase:.1f}")
-    return {"search_p50_ms": float(np.percentile(np.array(lat_s) * 1e3, 50))}
+    return {"search_p50_ms": float(np.percentile(np.array(lat_s) * 1e3, 50)), "lane_recall": lane_recall,
+            "queries": qs}
+
+
+N_PHOTOS = 1_024  # [orch_maint_hnsw]'s photo assets, 4 OCR blocks each
+N_VIDEOS = 256  # [orch_maint_hnsw]'s videos, 16 transcript segments each
+# Video recalls ask the inner search for max(64, top_k x 4 x max(top_k, 4)) hits: 256 at
+# the default top_k 8, which the flat lane serves on its plain product (k > 128, as the
+# JAX package's "auto" backend does). At top_k 4 it asks for 64, and K1 serves it.
+VIDEO_TOP_K = 4
+MM_DIM = 384
+
+
+class ChipMultimodalEmbedder:
+    """A seeded deterministic multimodal embedder (tests/test_multimodal.py's
+    DeterministicMultimodalEmbedder at width 384): texts hash to vectors, an image to
+    the vector of its reference, or of its pixels' digest."""
+
+    def __init__(self, seed: int, dim: int = MM_DIM):
+        from wax_tpu_torch.embed.hash_embedder import HashEmbedder
+
+        self._h = HashEmbedder(dim, seed=f"chip-smoke-{seed}")
+
+    @property
+    def dimensions(self):
+        return self._h.dimensions
+
+    @property
+    def identity(self):
+        return "chip-smoke-multimodal"
+
+    def embed_text(self, text):
+        return self._h.embed(text)
+
+    def embed_image(self, image):
+        import hashlib
+
+        import numpy as np
+
+        key = image if isinstance(image, str) else hashlib.sha256(np.ascontiguousarray(image).tobytes()).hexdigest()
+        return self._h.embed(f"image:{key}")
+
+
+class _Stub:
+    """An OCR and transcript provider handing back whatever was set last."""
+
+    def __init__(self):
+        self.items = []
+
+    def ocr(self, image):
+        return self.items
+
+    def transcript(self, video_ref):
+        return self.items
+
+
+def _mm_round(phase: str, wrapper, what: str, forget_ids, recall_fn, key_fn) -> dict:
+    """Recall, forget 10% of the wrapper's items, compact, recall, rewrite, recall: the
+    roots follow the remap and the recalls equal the compacted ones under it. K1
+    launches counted over the recalls."""
+    import torch
+
+    reset_launch_counts()
+    first = recall_fn()
+    k1 = launch_counts()["K1"]
+    check(all(first), f"{phase}: {what}: a recall found nothing")
+    check(k1 > 0, f"{phase}: {what}: the recalls launched K1 {k1} times")
+    roots = dict(wrapper._ingested)
+    inner = wrapper.inner
+    t0 = time.perf_counter()
+    for item in forget_ids:
+        check(wrapper.forget(item), f"{phase}: {what}: forget({item!r}) found nothing")
+    inner.maintainer.compact_indexes()
+    t_compact = time.perf_counter() - t0
+    reset_launch_counts()
+    compacted = recall_fn()
+    k1 += launch_counts()["K1"]
+    gone = {roots[i][0] for i in forget_ids}
+    remaps = []
+    inner.maintainer.remap_listeners.append(remaps.append)
+    t0 = time.perf_counter()
+    rep = inner.maintainer.rewrite_live_set()
+    torch.cuda.synchronize()
+    t_rewrite = time.perf_counter() - t0
+    (remap,) = remaps
+    check(set(wrapper._ingested) == set(roots) - set(forget_ids), f"{phase}: {what}: the wrapper lost or kept items")
+    for item, (root, ver) in wrapper._ingested.items():
+        check((root, ver) == (remap[roots[item][0]], roots[item][1]),
+              f"{phase}: {what}: the root of {item!r} did not follow the remap")
+    check(not any(g in remap for g in gone), f"{phase}: {what}: a forgotten root survived the rewrite")
+    reset_launch_counts()
+    rewritten = recall_fn()
+    k1 += launch_counts()["K1"]
+    for a, b in zip(compacted, rewritten):
+        check([key_fn(h, remap) for h in a] == [key_fn(h, None) for h in b],
+              f"{phase}: {what}: a recall after the rewrite differs from the compacted one under the remap")
+    check(inner.engine.vector.snapshot().emb.is_cuda, f"{phase}: {what}: the rebuilt snapshot is not on the card")
+    log(phase, f"{what}: forgot {len(forget_ids)} of {len(roots)}, compaction {t_compact:.2f} s (forgets included), "
+        f"rewrite {t_rewrite:.2f} s: frames {rep.frames_before} -> {rep.frames_after}, bytes {rep.bytes_before} -> "
+        f"{rep.bytes_after}; roots follow the remap; {len(rewritten)} recalls equal the compacted ones under it; K1 "
+        f"{k1} launches over the recalls")
+    return {"K1": k1}
+
+
+def orch_maint_hnsw_phase(dev, seed: int, tmp: Path, hnsw: dict) -> dict:
+    """[orch_maint_hnsw]: surrogates, a forget of 10% and the live-set rewrite on
+    [orch_hnsw]'s store in `tmp` (the graph rebuilt by the native builder onto the
+    card), then the photo and video orchestrators on the card: ingest, recall through
+    K1, forget, compact, rewrite with their roots remapped."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.embed.hash_embedder import HashEmbedder
+    from wax_tpu_torch.embed.minilm import MiniLMEmbedder
+    from wax_tpu_torch.index.graph_cpp import CppHNSWBuilder
+    from wax_tpu_torch.multimodal.photo import PhotoRAGOrchestrator
+    from wax_tpu_torch.multimodal.protocols import OCRBlock, TranscriptSpan
+    from wax_tpu_torch.multimodal.video import VideoRAGOrchestrator
+    from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
+    from wax_tpu_torch.search import engine_cache
+    from wax_tpu_torch.search.vector_engines import AutoVectorEngine, FlatVectorEngine
+
+    phase = "orch_maint_hnsw"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = OrchestratorConfig(vector_engine="hnsw")
+    qs = hnsw["queries"]
+    embedder = MiniLMEmbedder(dtype=torch.bfloat16, batch_size=256, seed=0, device=dev)
+    rng = np.random.default_rng(seed + 29)
+    orch = photo = video = None
+    launched = {"K1": 0}
+    try:
+        engine_cache.clear()
+        orch = MemoryOrchestrator(tmp / "memory.mv2s", embedder, cfg, device=dev)
+        t0 = time.perf_counter()
+        first = orch.maintainer.optimize_surrogates()
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = orch.maintainer.optimize_surrogates()
+        t_second = time.perf_counter() - t0
+        check(first.surrogates_created > 0 and second.surrogates_created == 0
+              and second.surrogates_current == first.surrogates_created
+              and second.frames_scanned == first.frames_scanned,
+              f"{phase}: optimize_surrogates gave {first}, then {second}")
+        log(phase, f"optimize_surrogates(): {first.frames_scanned} frames scanned, {first.surrogates_created} "
+            f"created in {t_first:.2f} s; again: {second.surrogates_current} current, 0 created in {t_second:.2f} s")
+
+        docs = _document_ids(orch)
+        gone = sorted(rng.choice(docs, len(docs) // 10, replace=False).tolist())
+        t_forget = _forget(phase, orch, gone)
+        remaps = []
+        orch.maintainer.remap_listeners.append(remaps.append)
+        t0 = time.perf_counter()
+        rep = orch.maintainer.rewrite_live_set()
+        torch.cuda.synchronize()
+        t_rewrite = time.perf_counter() - t0
+        (remap,) = remaps
+        vec = orch.engine.vector
+        check(type(vec.builder) is CppHNSWBuilder and len(vec) == len(docs) - len(gone),
+              f"{phase}: the rewrite rebuilt {type(vec.builder).__name__} with {len(vec)} rows")
+        t0 = time.perf_counter()
+        snap = vec.snapshot()
+        torch.cuda.synchronize()
+        t_snap = time.perf_counter() - t0
+        check(snap.emb.is_cuda and snap.adjacency.is_cuda, f"{phase}: the rebuilt graph is not on the card")
+        state = vec.builder.state_arrays()
+        flat = FlatVectorEngine(dim=HNSW_DIM, device=dev)
+        flat.add_batch(state["frame_ids"][state["active"]], state["vecs"][state["active"]])
+        qv = np.stack([orch.engine.embed_query(q) for q in qs])
+        _, hf = vec.search(qv, 10)
+        _, ff = flat.search(qv, 10)
+        lane_recall = AutoVectorEngine._recall(ff, hf)
+        del flat
+        check(abs(lane_recall - hnsw["lane_recall"]) <= 0.02,
+              f"{phase}: the rebuilt graph's recall@10 {lane_recall:.4f} is not within 0.02 of [orch_hnsw]'s "
+              f"{hnsw['lane_recall']:.4f}")
+        served = [orch.search(q, top_k=10) for q in qs]
+        old_of = {new: old for old, new in remap.items()}
+        check(all(len(r.hits) == 10 and not any(old_of[h.frame_id] in set(gone) for h in r.hits) for r in served),
+              f"{phase}: a search after the rewrite gave fewer than 10 hits or a forgotten document")
+        log(phase, f"forgot {len(gone)} of {len(docs)} in {t_forget:.2f} s; rewrite_live_set() {t_rewrite:.2f} s "
+            f"(frames {rep.frames_before} -> {rep.frames_after}, bytes {rep.bytes_before} -> {rep.bytes_after}); "
+            f"graph rebuilt by CppHNSWBuilder, snapshot onto the card {t_snap:.2f} s; vector lane recall@10 against "
+            f"a flat engine {lane_recall:.4f} ([orch_hnsw] {hnsw['lane_recall']:.4f})")
+        orch.close()
+        orch = None
+        engine_cache.clear()
+        orch = MemoryOrchestrator(tmp / "memory.mv2s", embedder, cfg, device=dev)
+        again = [orch.search(q, top_k=10) for q in qs]
+        check(all(_hit_keys(a) == _hit_keys(b) for a, b in zip(served, again)),
+              f"{phase}: the cold reopen of the rewritten store answers differently")
+        orch.close()
+        orch = None
+        log(phase, f"cold reopen of the rewritten store: {len(qs)} searches bit-identical")
+
+        # the photo orchestrator on the card
+        words = [w for q in qs for w in q.split()]
+        mm = ChipMultimodalEmbedder(seed)
+        ocr = _Stub()
+        photo = PhotoRAGOrchestrator(tmp / "photo.mv2s", embedder=mm, ocr_provider=ocr, device=dev)
+        captions = []
+        t0 = time.perf_counter()
+        for i in range(N_PHOTOS):
+            w = rng.choice(words, 12)
+            ocr.items = [OCRBlock(f"{w[2 * j]} {w[2 * j + 1]}", (0.05 + 0.24 * j, 0.1, 0.2, 0.1), 0.9)
+                         for j in range(4)]
+            captions.append(f"a photo of {w[8]} {w[9]} near {w[10]} {w[11]}")
+            photo.ingest(f"asset{i}", rng.integers(0, 256, (224, 224, 3), dtype=np.uint8),
+                         taken_at_ms=1_700_000_000_000 + i * 60_000, caption_text=captions[-1])
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        rows = len(photo.inner.engine.vector)
+        check(rows > 2_048, f"{phase}: the photo store holds {rows} vectors, not above 2,048")
+        log(phase, f"PhotoRAGOrchestrator: {N_PHOTOS} assets ingested in {t_ingest:.2f} s, {rows} inner vectors, "
+            f"{photo.inner.store.frame_count()} frames")
+        picks = rng.choice(N_PHOTOS, 64, replace=False)
+        out = _mm_round(
+            phase, photo, "photo", [f"asset{i}" for i in sorted(rng.choice(N_PHOTOS, N_PHOTOS // 10, replace=False))],
+            lambda: [photo.recall(captions[i]) for i in picks],
+            lambda h, m: (h.asset_id, m[h.frame_id] if m else h.frame_id, h.score, h.kind, h.text, h.summary,
+                          h.evidence, h.regions))
+        launched["K1"] += out["K1"]
+        photo.close()
+        photo = None
+
+        # the video orchestrator on the card
+        stub = _Stub()
+        video = VideoRAGOrchestrator(tmp / "video.mv2s", HashEmbedder(MM_DIM, seed=f"chip-smoke-{seed}"),
+                                     device=dev)
+        t0 = time.perf_counter()
+        lines = []
+        for i in range(N_VIDEOS):
+            segs = [" ".join(rng.choice(words, 8)) for _ in range(16)]
+            lines.append(segs)
+            stub.items = [TranscriptSpan(10_000 * j, 10_000 * j + 9_500, t) for j, t in enumerate(segs)]
+            res = video.ingest(f"vid{i}", 160_000, stub, taken_at_ms=1_700_000_000_000 + i * 60_000)
+            check(len(res.segment_frames) == 16, f"{phase}: video {i} gave {len(res.segment_frames)} segments")
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        rows = len(video.inner.engine.vector)
+        check(rows > 2_048, f"{phase}: the video store holds {rows} vectors, not above 2,048")
+        log(phase, f"VideoRAGOrchestrator: {N_VIDEOS} videos of 16 segments ingested in {t_ingest:.2f} s, {rows} "
+            "inner vectors")
+        picks = [(int(i), int(j)) for i, j in zip(rng.choice(N_VIDEOS, 64), rng.integers(0, 16, 64))]
+        out = _mm_round(
+            phase, video, "video", [f"vid{i}" for i in sorted(rng.choice(N_VIDEOS, N_VIDEOS // 10, replace=False))],
+            lambda: [video.recall(lines[i][j], top_k=VIDEO_TOP_K) for i, j in picks],
+            lambda h, m: (h.video_id, h.segment_index, m[h.frame_id] if m else h.frame_id, h.score, h.text,
+                          h.start_ms, h.end_ms, h.evidence))
+        launched["K1"] += out["K1"]
+    finally:
+        for o in (orch, photo, video):
+            if o is not None:
+                o.close()
+        engine_cache.clear()
+    log(phase, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+    return launched
 
 
 # -------------------------------------------------------------------------------- main
@@ -2647,12 +3108,24 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     path_e = auto_2m_phase(dev, args.seed, results)
     torch.cuda.empty_cache()
-    path_f = orch_100k_phase(dev, args.seed, results)
+    tmp = Path(tempfile.mkdtemp(prefix="wax-orch-100k-"))
+    try:
+        path_f = orch_100k_phase(dev, args.seed, results, tmp)
+        torch.cuda.empty_cache()
+        path_m = orch_maint_phase(dev, args.seed, results, tmp, path_f["queries"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     path_g = hnsw_100k_phase(dev, args.seed, results)
     torch.cuda.empty_cache()
-    orch_hnsw_phase(dev, args.seed)
-    launches["K1"] += path_f["K1"]
+    tmp = Path(tempfile.mkdtemp(prefix="wax-orch-hnsw-"))
+    try:
+        path_h = orch_hnsw_phase(dev, args.seed, tmp)
+        torch.cuda.empty_cache()
+        path_mh = orch_maint_hnsw_phase(dev, args.seed, tmp, path_h)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches["K1"] += path_f["K1"] + path_m["K1"] + path_mh["K1"]
     launches["K2"] += path_g["K2"]
     launches["K3"] = path_a["K3"] + path_b["K3"] + path_f["K3"]
     launches["K4"] = path_a["K4"] + path_b["K4"]
@@ -2682,7 +3155,7 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{key: r[key] for key in ("x768", "rows_10240", "engine_1m_l2_64", "hybrid_1m_wide", "ivf_1m", "auto_2m",
-                                       "auto_2m_flat", "orch_b1", "hnsw_100k") if key in r},
+                                       "auto_2m_flat", "orch_b1", "orch_maint", "hnsw_100k") if key in r},
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

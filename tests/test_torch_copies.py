@@ -9,8 +9,10 @@ pointed at the port, so it is held the same way.
 Changed copies are left out by name, each for the change its header states:
 `search/match.py` (evaluated over a position index of the port builder's token log),
 `utils/profiling.py` (`device_trace` on torch.profiler), `native/build.py` (builds
-into wax_tpu_torch/_build/native/), `index/graph_cpp.py` (the port's native library;
-`snapshot` passes `device` through) and `session.py` (`device`). `search/snippet.py` needs no change: it runs the
+into wax_tpu_torch/_build/native/, safely when several processes build at once),
+`index/graph_cpp.py` (the port's native library; `snapshot` passes `device` through),
+`session.py` (`device`) and `multimodal/photo.py`, `multimodal/video.py` (`device`,
+passed to the inner orchestrator). `search/snippet.py` needs no change: it runs the
 port's `match_search` on a one-document port builder, so it is held verbatim.
 """
 from pathlib import Path
@@ -31,8 +33,10 @@ COPIES = [
     "search/fts_preprocess.py", "search/rerank.py", "search/engine_cache.py", "search/snippet.py",
     "rag/config.py", "rag/context.py", "rag/importance.py", "rag/surrogates.py", "rag/builder.py",
     "orchestrator/config.py", "orchestrator/stats.py", "utils/concurrency.py",
+    "text/pdf.py", "rag/answer.py", "multimodal/protocols.py", "multimodal/ocr.py",
 ]
-CHANGED = ["search/match.py", "utils/profiling.py", "native/build.py", "index/graph_cpp.py", "session.py"]
+CHANGED = ["search/match.py", "utils/profiling.py", "native/build.py", "index/graph_cpp.py", "session.py",
+           "multimodal/photo.py", "multimodal/video.py"]
 
 
 def _strip_header(text: str) -> str:

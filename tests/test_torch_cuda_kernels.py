@@ -798,3 +798,57 @@ def test_hnsw_engine_on_the_card(dev):
     cv, cf = card.search(rows[:40], 10)
     pv, pf = cpu.search(rows[:40], 10)
     assert np.array_equal(cf, pf) and np.array_equal(cv, pv)
+
+
+def test_orchestrator_maintenance_on_the_card_equals_cpu(dev, tmp_path):
+    """A 4,096-document orchestrator on the card, then a forget of 10%, a compaction and
+    a live-set rewrite: after each step its answers (ids, lanes, scores within rtol
+    1e-6) equal a CPU orchestrator's after the same steps, its snapshots are rebuilt
+    on the card and its vector lane runs K1. Texts embed to rows of four entries of
+    +-0.5 (unit norm), so every product is exact and K1 ranks as its plain twin."""
+    import hashlib
+
+    from wax_tpu_torch.embed.hash_embedder import HashEmbedder
+    from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
+
+    class GridEmbedder(HashEmbedder):
+        def embed(self, text):
+            seed = int.from_bytes(hashlib.sha256(text.encode()).digest()[:8], "little")
+            rng = np.random.default_rng(seed)
+            v = np.zeros(self.dimensions, np.float32)
+            v[rng.choice(self.dimensions, 4, replace=False)] = rng.choice([-0.5, 0.5], 4)
+            return v
+
+        def embed_batch(self, texts):
+            return np.stack([self.embed(t) for t in texts])
+
+    rng = np.random.default_rng(13)
+    words = [f"w{i}" for i in range(600)]
+    p = 1.0 / np.arange(1, len(words) + 1)
+    docs = [" ".join(rng.choice(words, 12, p=p / p.sum())) for _ in range(4096)]
+    queries = [" ".join(rng.choice(words[:200], 3, replace=False)) for _ in range(32)]
+    gone = rng.permutation(4096)[:409].tolist()
+    cfg = OrchestratorConfig(enable_access_stats=False)
+    card = MemoryOrchestrator(tmp_path / "card.mv2s", GridEmbedder(64), cfg, device=dev)
+    cpu = MemoryOrchestrator(tmp_path / "cpu.mv2s", GridEmbedder(64), cfg, device="cpu")
+    try:
+        for o in (card, cpu):
+            o.remember_batch(docs)
+            o.flush()
+            for fid in gone:
+                o.forget(fid)
+        for step in ("compact_indexes", "rewrite_live_set"):
+            for o in (card, cpu):
+                getattr(o.maintainer, step)()
+            assert len(card.engine.vector) == len(cpu.engine.vector) == 4096 - 409
+            k1 = fs.K1_LAUNCHES
+            for q in queries:
+                a, b = cpu.search(q), card.search(q)
+                assert [h.frame_id for h in a.hits] == [h.frame_id for h in b.hits], (step, q)
+                np.testing.assert_allclose([h.score for h in b.hits], [h.score for h in a.hits], rtol=1e-6)
+                assert a.lane_counts == b.lane_counts
+            assert fs.K1_LAUNCHES - k1 == len(queries)
+            assert card.engine.vector.snapshot().emb.is_cuda and card.engine.lex_snapshot().device.type == "cuda"
+    finally:
+        card.close()
+        cpu.close()

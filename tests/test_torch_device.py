@@ -18,7 +18,9 @@ from wax_tpu_torch.index.dense import DenseIndexBuilder
 from wax_tpu_torch.index.graph import HNSWBuilder, graph_index_from_numpy
 from wax_tpu_torch.index.ivf import build_ivf, ivf_index_from_numpy
 from wax_tpu_torch.index.lex import LexIndexBuilder
-from wax_tpu_torch.orchestrator import MemoryOrchestrator
+from wax_tpu_torch.multimodal.photo import PhotoRAGOrchestrator
+from wax_tpu_torch.multimodal.video import VideoRAGOrchestrator
+from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
 from wax_tpu_torch.parallel.mesh import data_mesh
 from wax_tpu_torch.search.engine import HybridSearchEngine
 from wax_tpu_torch.search.vector_engines import (AutoVectorEngine, FlatVectorEngine, HNSWVectorEngine, IVFVectorEngine,
@@ -65,6 +67,38 @@ def _orchestrator_device(**kw):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _wrapper_device(cls, **kw):
+    """The device a photo or video orchestrator's inner store serves on."""
+    tmp = tempfile.mkdtemp()
+    try:
+        o = cls(Path(tmp) / "media.mv2s", HashEmbedder(8), **kw)
+        o.close()
+        return o.inner.device
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _maintained_device(engine: str, step: str, **kw):
+    """The device of the snapshots taken after the maintainer rebuilt the builders
+    (a compaction or a live-set rewrite, after a forget)."""
+    tmp = tempfile.mkdtemp()
+    try:
+        o = MemoryOrchestrator(Path(tmp) / "memory.mv2s", HashEmbedder(8),
+                               OrchestratorConfig(vector_engine=engine), **kw)
+        try:
+            fids = [o.remember(f"note {i} about the lake").document_id for i in range(4)]
+            o.forget(fids[1])
+            getattr(o.maintainer, step)()
+            lex_dev = o.engine.lex_snapshot().device
+            vec_dev = o.engine.vector.snapshot().device
+            assert lex_dev == vec_dev and o.search("lake note").hits
+            return vec_dev
+        finally:
+            o.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 ENTRY_POINTS = {
     "MiniLMEmbedder": lambda **kw: MiniLMEmbedder(cfg=TINY, dtype=torch.float32, **kw).device,
     "DenseIndexBuilder.snapshot": lambda **kw: _dense().snapshot(**kw).device,
@@ -90,6 +124,12 @@ ENTRY_POINTS = {
         np.full((128, 48), -1, np.int32), np.ones((128, 8), np.float32), np.zeros(128, np.int32),
         np.zeros(128, np.float32), np.zeros(8, np.int32), **kw).device,
     "open_session": _session_device,
+    "PhotoRAGOrchestrator": lambda **kw: _wrapper_device(PhotoRAGOrchestrator, **kw),
+    "VideoRAGOrchestrator": lambda **kw: _wrapper_device(VideoRAGOrchestrator, **kw),
+    "Maintainer.compact_indexes(auto)": lambda **kw: _maintained_device("auto", "compact_indexes", **kw),
+    "Maintainer.compact_indexes(ivf)": lambda **kw: _maintained_device("ivf", "compact_indexes", **kw),
+    "Maintainer.rewrite_live_set(flat)": lambda **kw: _maintained_device("flat", "rewrite_live_set", **kw),
+    "Maintainer.rewrite_live_set(hnsw)": lambda **kw: _maintained_device("hnsw", "rewrite_live_set", **kw),
 }
 
 

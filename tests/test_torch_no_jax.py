@@ -48,7 +48,9 @@ def test_port_imports_without_jax():
         "ops.bm25_chunked_pallas", "ops.chunkmax_scan", "ops.ivf_kernel", "parallel.mesh",
         "parallel.merge", "parallel.sharded_scan", "parallel.sharded_hybrid", "search.unified",
         "index.ivf", "index.graph", "index.graph_cpp", "ops.beam_search", "session",
-        "orchestrator.serialization", "orchestrator.orchestrator",
+        "orchestrator.serialization", "orchestrator.orchestrator", "orchestrator.maintenance",
+        "text.pdf", "rag.answer", "multimodal.protocols", "multimodal.ocr", "multimodal.photo",
+        "multimodal.video",
     }
     assert {f"wax_tpu_torch.{m}" for m in expected} <= set(res["mods"])
 

@@ -8,16 +8,20 @@ previews, sources, lane counts, warnings) and `recall(...).render()` must be equ
 strings, once with exact postings and once under a manual postings budget (the
 candidate lane). Then stores cross between the packages in both directions, a cold
 reopen answers as a reclaimed one, a parked engine of another device is not served,
-an hnsw config serves and a JAX hnsw store opens, and the cases the port leaves for
-later raise NotImplementedError.
+an hnsw config serves and a JAX hnsw store opens, the maintainer serves, files and
+PDFs are remembered alike, and the sharded configurations the port leaves for later
+raise NotImplementedError.
 """
 import itertools
+import os
+import tempfile
 
 import numpy as np
 import pytest
 import torch
 
 import wax_tpu.embed.hash_embedder as jax_hash
+import wax_tpu.native.build as jax_native
 import wax_tpu.orchestrator as jax_orch
 import wax_tpu.rag.config as jax_rag
 import wax_tpu.search.engine_cache as jax_cache
@@ -33,6 +37,18 @@ import wax_tpu_torch.text.chunker as port_chunker
 import wax_tpu_torch.types as port_types
 from wax_tpu_torch.search.vector_engines import AutoVectorEngine, FlatVectorEngine, IVFVectorEngine
 from wax_tpu_torch.utils.profiling import span_stats
+
+# Each pytest-xdist worker builds and loads the native C++ library (both packages read
+# WAX_TPU_NATIVE_DIR at every load) in a directory of its own: the JAX package's build
+# is not safe when several processes use it for the first time at once. Workers collect
+# every module before they run a test, so this is set before any test's first load. A
+# JAX module collected earlier may already have tried the shared directory, lost that
+# race and marked the library unavailable for the process; the JAX loader then tries
+# again, in the worker's own directory.
+if "PYTEST_XDIST_WORKER" in os.environ and "WAX_TPU_NATIVE_DIR" not in os.environ:
+    os.environ["WAX_TPU_NATIVE_DIR"] = os.path.join(
+        tempfile.gettempdir(), f"wax-tpu-native-{os.environ['PYTEST_XDIST_WORKER']}")
+    jax_native._load_failed = False
 
 PKGS = {
     "jax": (jax_orch, jax_hash, jax_rag, jax_chunker, jax_types),
@@ -403,10 +419,19 @@ def test_hnsw_config_serves(tmp_path):
 
 
 def test_maintainer_raises(tmp_path):
+    """The maintainer serves (built once, lazily; the scheduled rewrite is off by
+    default); a multi-slice mesh config still raises."""
+    from wax_tpu_torch.orchestrator.maintenance import Maintainer
+
     o = _open("port", tmp_path / "p.mv2s")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        o.maintainer
-    o.close()
+    try:
+        m = o.maintainer
+        assert isinstance(m, Maintainer) and o.maintainer is m
+        o.remember("a note to compact")
+        assert o.maintainer.compact_indexes() >= 1
+        assert o.maintainer.maybe_scheduled_rewrite().reason == "disabled"
+    finally:
+        o.close()
     with pytest.raises(ValueError, match="sharded_lanes"):
         _config("port", mesh_slices=2)
 
@@ -432,18 +457,26 @@ def test_jax_hnsw_store_opens_in_port(tmp_path):
 
 
 def test_remember_file_text_and_pdf(tmp_path):
-    """A text file is remembered as the JAX orchestrator remembers it; a PDF raises
-    until its text extraction is ported."""
+    """A text file and a PDF are remembered as the JAX orchestrator remembers them; a
+    PDF without text raises alike."""
+    from tests.test_pdf import _make_pdf
+
     note = tmp_path / "note.txt"
     note.write_text("The spare key hangs behind the garden shed door.")
-    (tmp_path / "scan.pdf").write_bytes(b"%PDF-1.4 not really a pdf")
+    (tmp_path / "scan.pdf").write_bytes(_make_pdf(["The ladder leans on the boathouse wall"], compress=True))
+    (tmp_path / "blank.pdf").write_bytes(b"%PDF-1.4 not really a pdf")
     jo, po = _open("jax", tmp_path / "j.mv2s"), _open("port", tmp_path / "p.mv2s")
     try:
         for o in (jo, po):
             o.remember_file(note)
-        _assert_same_response(jo.search("garden shed key"), po.search("garden shed key"))
-        with pytest.raises(NotImplementedError, match="item 4"):
-            po.remember_file(tmp_path / "scan.pdf")
+            o.remember_file(tmp_path / "scan.pdf")
+            with pytest.raises(ValueError, match="no extractable text"):
+                o.remember_file(tmp_path / "blank.pdf")
+        for q in ("garden shed key", "ladder boathouse"):
+            _assert_same_response(jo.search(q), po.search(q))
+        assert po.store.frame_content(1) == jo.store.frame_content(1)
+        assert b"boathouse" in po.store.frame_content(1)
+        assert po.store.frame_meta(1).metadata == jo.store.frame_meta(1).metadata
     finally:
         jo.close()
         po.close()

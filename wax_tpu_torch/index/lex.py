@@ -27,6 +27,7 @@ import re
 from array import array
 from collections import Counter
 from dataclasses import dataclass
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -434,6 +435,72 @@ class LexIndexBuilder:
         live = np.nonzero(active & (fids >= 0))[0]
         b._row_of = dict(zip(fids[live].tolist(), live.tolist()))
         return b
+
+    def compact(self) -> None:
+        """Physically drop tombstoned rows and unreferenced vocab, renumbering rows
+        (reference: MemoryOrchestrator+Maintenance.swift:160-171). As in the JAX
+        package, the generation restarts: it is the fresh builder's plus one. So
+        caches keyed on the generation (the MATCH engine's position index) are
+        dropped with the old state."""
+        fresh = self._rebuilt(None)
+        self.__dict__.clear()
+        self.__dict__.update(fresh.__dict__)
+        self._generation += 1
+
+    def remapped(self, remap: Mapping[int, int]) -> "LexIndexBuilder":
+        """A fresh builder (generation 0) over the live rows whose frame ids `remap`
+        holds, each under its new id: the live-set rewrite's lexical index."""
+        return self._rebuilt(remap)
+
+    def _rebuilt(self, remap: Mapping[int, int] | None) -> "LexIndexBuilder":
+        """The live rows in row order, as if their token sequences were added again to
+        an empty builder: term ids in first-occurrence order, each row's postings in
+        its own first-occurrence order (the JAX builder's Counter order). Frame ids go
+        through `remap` when given, and rows of frames it lacks are dropped."""
+        fids = np.asarray(self._frame_ids, np.int64)
+        keep = np.asarray(self._active, bool) & (fids >= 0)
+        if remap is not None:
+            keep &= np.fromiter((int(f) in remap for f in fids.tolist()), bool, len(fids))
+        rows = np.nonzero(keep)[0]
+        new_fids = fids[rows].tolist()
+        if remap is not None:
+            new_fids = [int(remap[f]) for f in new_fids]
+        tok = np.frombuffer(self._tok, np.int32) if len(self._tok) else np.zeros(0, np.int32)
+        off = np.frombuffer(self._tok_off, np.int64)
+        lens = off[rows + 1] - off[rows]
+        new_off = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(lens, out=new_off[1:])
+        old_tids = tok[np.repeat(off[rows] - new_off[:-1], lens) + np.arange(new_off[-1])]
+        # term ids anew, in order of first occurrence over the kept rows
+        uniq, first = np.unique(old_tids, return_index=True)
+        seen = uniq[np.argsort(first, kind="stable")]
+        to_new = np.zeros(len(self._vocab), np.int64)
+        to_new[seen] = np.arange(len(seen))
+        new_tids = to_new[old_tids]
+        n_terms = len(seen)
+        # (row, term) pairs with their counts, ordered by first occurrence: row-major,
+        # and within a row in the order its terms first appear
+        row_of_tok = np.repeat(np.arange(len(rows), dtype=np.int64), lens)
+        ukey, ufirst, ucount = np.unique(
+            row_of_tok * max(n_terms, 1) + new_tids, return_index=True, return_counts=True
+        )
+        order = np.argsort(ufirst, kind="stable")
+        post_row, post_tid = np.divmod(ukey[order], max(n_terms, 1))
+
+        inv = list(self._vocab)
+        fresh = LexIndexBuilder(postings_budget=self.postings_budget)
+        fresh._vocab = {inv[t]: i for i, t in enumerate(seen.tolist())}
+        fresh._df_all = np.bincount(post_tid, minlength=n_terms).tolist()
+        fresh._post_tid = array("i", post_tid.astype(np.int32).tobytes())
+        fresh._post_row = array("i", post_row.astype(np.int32).tobytes())
+        fresh._post_tf = array("i", ucount[order].astype(np.int32).tobytes())
+        fresh._tok = array("i", new_tids.astype(np.int32).tobytes())
+        fresh._tok_off = array("q", new_off.tobytes())
+        fresh._doc_len = lens.tolist()
+        fresh._frame_ids = new_fids
+        fresh._active = [True] * len(rows)
+        fresh._row_of = {f: r for r, f in enumerate(new_fids)}
+        return fresh
 
     def snapshot(self, device: str | torch.device | None = None) -> LexIndex:
         """Build the snapshot on `device` (None: the current CUDA device)."""

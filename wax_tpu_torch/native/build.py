@@ -1,7 +1,15 @@
-# Copy of wax_tpu/native/build.py with one change: the library is built into
+# Copy of wax_tpu/native/build.py with two changes: the library is built into
 # wax_tpu_torch/_build/native/ (git-ignored) from this package's copies of the C++
-# sources, not next to them. Keep the two in step.
+# sources, not next to them; and several processes may load it first at once (they
+# take <cache>/.build.lock in turn; a build compiles and links in a private directory
+# and renames the library into place). Keep the two in step.
 """Native library build + load: compiles the C++ sources once, caches the .so.
+
+Concurrent first use is safe: processes serialise on an exclusive flock of
+`<cache>/.build.lock` around "exists? else build; then load", and a build compiles
+its objects in a private temporary directory of the cache, links the library there
+and `os.replace`s it onto its final name, so no process reads a half-written library
+or another's objects.
 
 The reference leans on native engines for its host-side hot paths (USearch C++ HNSW,
 SQLite FTS5 C, C compression shims — SURVEY.md §2); here the native layer is built
@@ -12,9 +20,12 @@ check `load_library() is not None` and use the pure-Python implementation otherw
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 __all__ = ["load_library", "native_available"]
@@ -45,27 +56,33 @@ def _build(lib_path: Path) -> None:
     """Two-step build: objects get fast-math (vectorized reductions), the LINK does
     not — linking with -ffast-math pulls in crtfastmath.o, which flips the process
     into flush-to-zero/denormals-are-zero mode at dlopen and silently breaks IEEE
-    subnormals for the whole host (numpy, hypothesis, jax callbacks)."""
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    compile_flags = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-std=c++17", "-fPIC"]
-    objs = []
-    for s in _SOURCES:
-        obj = lib_path.parent / (Path(s).stem + ".o")
+    subnormals for the whole host (numpy, hypothesis, jax callbacks).
+
+    Objects and the linked library live in a private directory until the library
+    is complete; it then replaces `lib_path` atomically."""
+    work = Path(tempfile.mkdtemp(prefix="build-", dir=lib_path.parent))
+    try:
+        compile_flags = ["-O3", "-march=native", "-ffast-math", "-funroll-loops", "-std=c++17", "-fPIC"]
+        objs = []
+        for s in _SOURCES:
+            obj = work / (Path(s).stem + ".o")
+            subprocess.run(
+                ["g++", *compile_flags, "-c", "-o", str(obj), str(_SRC_DIR / s)],
+                check=True,
+                capture_output=True,
+                timeout=300,
+            )
+            objs.append(str(obj))
+        tmp_lib = work / lib_path.name
         subprocess.run(
-            ["g++", *compile_flags, "-c", "-o", str(obj), str(_SRC_DIR / s)],
+            ["g++", "-shared", "-o", str(tmp_lib), *objs],
             check=True,
             capture_output=True,
             timeout=300,
         )
-        objs.append(str(obj))
-    subprocess.run(
-        ["g++", "-shared", "-o", str(lib_path), *objs],
-        check=True,
-        capture_output=True,
-        timeout=300,
-    )
-    for o in objs:
-        os.unlink(o)
+        os.replace(tmp_lib, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def load_library() -> ctypes.CDLL | None:
@@ -75,11 +92,15 @@ def load_library() -> ctypes.CDLL | None:
         return _loaded
     if _load_failed or os.environ.get("WAX_TPU_DISABLE_NATIVE") == "1":
         return None
-    lib_path = _cache_dir() / f"{_LIB_BASENAME}-{_source_digest()}.so"
+    cache = _cache_dir()
+    lib_path = cache / f"{_LIB_BASENAME}-{_source_digest()}.so"
     try:
-        if not lib_path.exists():
-            _build(lib_path)
-        lib = ctypes.CDLL(str(lib_path))
+        cache.mkdir(parents=True, exist_ok=True)
+        with open(cache / ".build.lock", "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib_path.exists():
+                _build(lib_path)
+            lib = ctypes.CDLL(str(lib_path))
         _configure(lib)
         _loaded = lib
         return lib

@@ -27,13 +27,15 @@ both directions (`orchestrator/serialization.py`). Differences from the JAX modu
 - a parked vector engine is reclaimed only onto its own device, and it keeps its
   device snapshot (device memory) after `close()` until the engine cache drops it
   (`search/engine_cache.clear()`);
-- maintenance (`maintainer`: surrogates, compaction, the live-set rewrite) raises
-  NotImplementedError (ROADMAP queue 1, item 4); `flush` reaches it only when
-  `rewrite_schedule.enabled`, which is off by default. So does `remember_file` on a
-  PDF (its text extraction, `text/pdf.py`, is item 4's too);
+- maintenance (`maintainer`: surrogates, compaction, the live-set rewrite,
+  `orchestrator/maintenance.py`) rebuilds the engine's builders on the host; the next
+  search takes a fresh snapshot onto `device`;
 - `remember_batch` records spans of its steps (`remember.chunk_store`,
   `remember.lex_add`, `remember.embed`, `remember.store_embeddings`,
-  `remember.vector_add`).
+  `remember.vector_add`);
+- `forget` finds a frame's children through an index of parents that grows with the
+  store (the JAX module reads every frame's metadata on each forget, a cost linear in
+  the store); it deletes the same frames in the same order.
 """
 from __future__ import annotations
 
@@ -245,14 +247,17 @@ class MemoryOrchestrator:
         self.rag_builder = FastRAGContextBuilder(
             self.engine, config.rag, self.counter, self.access_stats
         )
+        self._maintainer = None
+        self._child_index: tuple = (None, 0, {})  # (store, frames scanned, parent -> children)
 
     @property
     def maintainer(self):
-        """Maintenance facade (surrogates, compaction, live-set rewrite): not ported."""
-        raise NotImplementedError(
-            "orchestrator maintenance (surrogates, compaction, the live-set rewrite) is not "
-            "ported yet (ROADMAP queue 1, item 4: orchestrator/maintenance.py)"
-        )
+        """Lazy maintenance facade (surrogates, compaction, live-set rewrite)."""
+        if self._maintainer is None:
+            from wax_tpu_torch.orchestrator.maintenance import Maintainer
+
+            self._maintainer = Maintainer(self)
+        return self._maintainer
 
     # ------------------------------------------------------------------- open/load ----
     def _load_committed_state(self) -> None:
@@ -561,16 +566,18 @@ class MemoryOrchestrator:
 
     @_synchronized
     def remember_file(self, path: str | Path, **kwargs) -> RememberResult:
-        """Ingest a file read as UTF-8 text (reference: MemoryOrchestrator+File.swift:5-36).
-        PDFs raise NotImplementedError: their text extraction (`text/pdf.py`) is not
-        ported yet."""
+        """Ingest a file: PDFs go through text extraction, everything else is read as
+        UTF-8 text (reference: MemoryOrchestrator+File.swift:5-36 + PDFTextExtractor)."""
         p = Path(path)
         raw = p.read_bytes()
         if raw.startswith(b"%PDF"):
-            raise NotImplementedError(
-                "PDF text extraction is not ported yet (ROADMAP queue 1, item 4: text/pdf.py)"
-            )
-        content = raw.decode("utf-8", errors="ignore")
+            from wax_tpu_torch.text.pdf import extract_pdf_text
+
+            content = extract_pdf_text(raw)
+            if not content:
+                raise ValueError(f"no extractable text in PDF {p}")
+        else:
+            content = raw.decode("utf-8", errors="ignore")
         kwargs.setdefault("metadata", {})
         kwargs["metadata"] = {**dict(kwargs["metadata"]), "source_file": p.name}
         return self.remember(content, **kwargs)
@@ -581,15 +588,29 @@ class MemoryOrchestrator:
         m = self.store.frame_meta(frame_id)
         if m is None:
             return False
-        doomed = [frame_id]
-        for fid in range(self.store.frame_count()):
-            child = self.store.frame_meta(fid)
-            if child is not None and child.parent_id == frame_id:
-                doomed.append(fid)
+        doomed = [frame_id] + self._children_of(frame_id)
         for fid in doomed:
             self.store.delete(fid)
             self.engine.remove(fid)
         return True
+
+    def _children_of(self, frame_id: int) -> list[int]:
+        """Ascending ids of the frames whose parent is `frame_id` (chunks, surrogates,
+        a photo's or video's derived frames): the frames the JAX module finds by
+        scanning every frame. Frames are append-only and a frame's parent never
+        changes, so an index of parents is extended by the frames added since the
+        last call, and started again when the store object changes (a live-set
+        rewrite reopens it)."""
+        store, scanned, children = self._child_index
+        if store is not self.store:
+            store, scanned, children = self.store, 0, {}
+        n = store.frame_count()
+        for fid in range(scanned, n):
+            parent = store.frame_meta(fid).parent_id
+            if parent is not None:
+                children.setdefault(parent, []).append(fid)
+        self._child_index = (store, n, children)
+        return list(children.get(frame_id, ()))
 
     # ----------------------------------------------------------------------- recall ----
     @_synchronized_read
