@@ -85,7 +85,7 @@ Phases, each printing lines tagged with its name:
             [orch_maint] then works on: a .mv2s store, remember_batch over smoke_100k's 102,400
             documents in calls of 1,024 (full-width MiniLM, bf16, random weights; the
             default "auto" vector engine is flat at capacity 131,072 x 384 f32), flush;
-            256 search(top_k=10) and 256 recall() calls one at a time (p50, p99,
+            128 search(top_k=10) and 128 recall() calls one at a time (p50, p99,
             calls/s, spans; K1 launched once per vector-lane call, B 1); a profiled
             window of 32 fresh searches; K1 held and timed at this B 1 shape
             ("orch_b1" under K1); close, clear the engine cache and reopen cold (the
@@ -140,6 +140,37 @@ Phases, each printing lines tagged with its name:
             equal the compacted ones under it. VideoRAGOrchestrator: 256 videos of 16
             transcript segments, the same steps with recall(top_k=4) (the default
             top_k 8 asks the flat lane for 256 hits, past K1's k 128)
+  train     the contrastive Trainer (parallel/train.py) at MiniLMConfig()'s width: BERT's
+            random initialisation from the seed (matrices N(0, 0.02^2)), lr 1e-4, f32
+            parameters, bf16 compute, TRAIN_STEPS steps of 256 synthetic query/document
+            pairs of length 64 that share no token (12 of 8,192 concepts each, written
+            with disjoint token ranges); losses, step ms (p50 and spread), tokens/s,
+            train_mfu (model FLOPs of a step over its p50 time at 989 TFLOP/s bf16), peak
+            memory, a profiled window of 3 steps; recall@10 of 256 held-out queries over
+            10,240 held-out documents through FlatVectorEngine (auto -> K1, k 10) before
+            and after (K1 twice, nothing else); K1 held and timed at that shape
+            ("train_eval" under K1); a checkpoint saved at step 3 and resumed gives the
+            uninterrupted run's losses bit for bit under
+            torch.use_deterministic_algorithms (ops without a deterministic CUDA form
+            are named, and then held within rtol 1e-5)
+  mcp       the MCP server (surfaces/mcp_server.py): a store of the smoke corpus's
+            102,400 documents built with HashEmbedder(384) in a process of its own
+            beside [train]; build_server in process (the hash embedder kept by
+            _select_embedder): a profiled window of 32 searches, then 1,024 JSON-RPC
+            messages in an agent session's order (the handshake, 256 rounds of
+            wax_search and wax_recall, 256 wax_remember, 64 structured calls, 16
+            handoffs and their latest, 88 searches with the tool's options, the
+            timeline, stats, 64 forgets, a flush): p50 and p99 per tool; K1 once per
+            vector-lane call at B 1 over the reopened store's 102,400 x 384 f32
+            snapshot, until the remembers double it to 204,800 rows, past the 131,072
+            up to which flat_scan's auto picks K1 (the later calls run the plain
+            blockmax scan, as JAX's do); 64 searches of the server reopened over the
+            flushed store against a CPU server over its copy (BM25 lanes equal,
+            vector lanes by exact score, fused top-10 at ORCH_FUSED_FLOOR), with
+            `python -m wax_tpu_torch.surfaces.cli mcp doctor` meanwhile (exit 0, the
+            card named); `python -m wax_tpu_torch.surfaces.mcp_server` over stdio on
+            that store finds a note remembered and flushed above and exits 0 on
+            closed stdin
 
 Each serving phase sets the launch counts to 0 just before it runs and reads them just
 after; every kernel of its path must have launched. Each profiled window also prints its
@@ -153,7 +184,9 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import itertools
 import json
+import os
 import re
 import shutil
 import statistics
@@ -1939,6 +1972,7 @@ def auto_2m_phase(dev, seed: int, results: dict) -> dict:
 # ------------------------------------------------------------------------ orch_100k
 
 ORCH_BUDGET = 4096  # the budgeted reopen's manual lex_postings_budget
+N_ORCH_QUERIES = 128  # [orch_100k]'s searches and recalls (cut from 256 for the run's time limit)
 # The least share of queries whose fused top-10 must equal the CPU's. Where they differ,
 # the vector lane reordered near-ties (RRF fuses ranks, so one swap there can reorder
 # the fused list): K1 ranks scores truncated to 2^-12 relative, summed in another order
@@ -2066,29 +2100,37 @@ def _k1_b1_case(phase: str, dev, snap, embedding, label: str) -> dict:
     import numpy as np
     import torch
 
+    q1 = torch.from_numpy(embedding / np.linalg.norm(embedding))[None, :].to(dev)
+    return _k1_snap_case(phase, snap, q1, FETCH_K, label)
+
+
+def _k1_snap_case(phase: str, snap, q, k: int, label: str) -> dict:
+    """K1 over a live engine's dense snapshot at the queries `q` [B, d] (normalised,
+    f32, on the snapshot's device) and `k`, against its plain twin; kernel, plain and
+    torch.matmul f32 times queued behind a sleep kernel, and the bound."""
+    import torch
+
     from wax_tpu_torch.ops import flat_scan as fs
 
-    n, d = snap.emb.shape
-    q1 = torch.from_numpy(embedding / np.linalg.norm(embedding))[None, :].to(dev)
+    (n, d), b = snap.emb.shape, q.shape[0]
     bias, tn = fs._index_bias(snap), fs._pick_tn(n)
-    k = FETCH_K
 
     def run_kernel():
-        return fs.packed_sel_tiles(q1, snap.emb, bias, k, tn)
+        return fs.packed_sel_tiles(q, snap.emb, bias, k, tn)
 
     def run_plain():
-        return fs._packed_sel_topk_plain(q1, snap.emb, bias, k, tn)
+        return fs._packed_sel_topk_plain(q, snap.emb, bias, k, tn)
 
     kv, kr = fs._merge_tiles(*fs._decode_packed(run_kernel(), k, tn), k)
     pv, pr = fs._merge_tiles(*fs._decode_packed(run_plain(), k, tn), k)
-    err, overlap = _topk_agree(phase, f"K1 B 1 ({label})", kv, kr, pv, pr,
-                               fs._scores_f32(q1, snap.emb) + bias[None, :], k, False, TRUNC_REL)
-    out_bytes = (n // tn) * k * 4
-    nbytes = 4 * (d + n * d) + 4 * n + out_bytes
+    err, overlap = _topk_agree(phase, f"K1 B {b} ({label})", kv, kr, pv, pr,
+                               fs._scores_f32(q, snap.emb) + bias[None, :], k, False, TRUNC_REL)
+    out_bytes = b * (n // tn) * k * 4
+    nbytes = 4 * (b * d + n * d) + 4 * n + out_bytes
     rec = {"ms": queued_ms(run_kernel), "plain_ms": queued_ms(run_plain), "max_abs_err": err}
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * 2 * n * d, "tf32")
-    rec["library_ms"] = queued_ms(lambda: torch.matmul(q1, snap.emb.t()))
-    log(phase, f"K1 at B 1 x {n} x {d} {snap.emb.dtype}, k {k} (tn {tn}): agree (max_abs_err={err:.3g}, "
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 3 * 2 * b * n * d, "tf32")
+    rec["library_ms"] = queued_ms(lambda: torch.matmul(q, snap.emb.t()))
+    log(phase, f"K1 at B {b} x {n} x {d} {snap.emb.dtype}, k {k} (tn {tn}): agree (max_abs_err={err:.3g}, "
         f"overlap={overlap:.4f}); kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} bytes), library (torch.matmul f32) "
         f"{rec['library_ms']:.4f} ms (each queued behind a sleep kernel, CUDA events)")
@@ -2098,7 +2140,7 @@ def _k1_b1_case(phase: str, dev, snap, embedding, label: str) -> dict:
 def orch_100k_phase(dev, seed: int, results: dict, tmp: Path) -> dict:
     """path (f): the MemoryOrchestrator a user calls, over the smoke corpus's 102,400
     documents with the full-width MiniLM (random weights, bf16) in a temporary
-    directory: remember_batch in calls of 1,024, flush, 256 search and 256 recall
+    directory: remember_batch in calls of 1,024, flush, 128 search and 128 recall
     calls, a profiled window, a cold reopen (bit-identical answers), a read-only
     reopen with a manual postings budget (the candidate lane and K3), the same
     requests on the CPU, and K1 timed at the orchestrator's own B 1 shape. The store
@@ -2116,7 +2158,7 @@ def orch_100k_phase(dev, seed: int, results: dict, tmp: Path) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     _, docs, queries = make_corpus(seed)
-    qs = queries[0]
+    qs = queries[0][:N_ORCH_QUERIES]
     path = tmp / "memory.mv2s"
 
     def spans(prefix: str) -> str:
@@ -2529,9 +2571,38 @@ def _hnsw_checks(phase, what, vals, fids, q64, emb64, row_of, live):
     return gap
 
 
-def hnsw_100k_phase(dev, seed: int, results: dict) -> dict:
+def start_hnsw_build(dev, seed: int) -> dict:
+    """Start [hnsw_100k]'s native build in a background thread: make_vector_engine(
+    "hnsw", dim=384) over 102,400 hard-clustered unit rows. The build is one call into
+    the native library, which releases the interpreter lock, so it runs on a host core
+    of its own while the earlier phases run; `hnsw_100k_phase` joins it. Returns the
+    engine, the rows, the thread and (once joined) the build's seconds or its error."""
+    import threading
+
+    import numpy as np
+
+    from wax_tpu_torch.search.vector_engines import make_vector_engine
+
+    job = {"vecs": hard_clustered(N_HNSW, np.random.default_rng(seed)),
+           "eng": make_vector_engine("hnsw", dim=HNSW_DIM, device=dev)}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            job["eng"].add_batch(np.arange(N_HNSW), job["vecs"])
+        except Exception as e:  # noqa: BLE001 — raised again by the phase that joins
+            job["error"] = e
+        job["seconds"] = time.perf_counter() - t0
+
+    job["thread"] = threading.Thread(target=build, name="hnsw-100k-build", daemon=True)
+    job["thread"].start()
+    return job
+
+
+def hnsw_100k_phase(dev, seed: int, results: dict, job: dict) -> dict:
     """BASELINE config 3: make_vector_engine("hnsw", dim=384) (CppHNSWBuilder, M 16,
-    efConstruction 100) over 102,400 hard-clustered unit rows; 256 queries at ef 16,
+    efConstruction 100) over 102,400 hard-clustered unit rows, built by
+    `start_hnsw_build` in the background (`job`); 256 queries at ef 16,
     64, 128 and 256 through `hnsw_search` on the card against the exact top-10 of K2
     (`flat_scan_topk(backend="pallas")`, held against its twin here); the card against
     the CPU on the same graph, bit for bit on a 1/8-grid graph, and with TF32 on.
@@ -2544,25 +2615,28 @@ def hnsw_100k_phase(dev, seed: int, results: dict) -> dict:
     from wax_tpu_torch.index.graph_cpp import CppHNSWBuilder
     from wax_tpu_torch.ops import flat_scan as fs
     from wax_tpu_torch.ops.beam_search import hnsw_search
-    from wax_tpu_torch.search.vector_engines import AutoVectorEngine, make_vector_engine
+    from wax_tpu_torch.search.vector_engines import AutoVectorEngine
 
     phase = "hnsw_100k"
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     k = 10
-    vecs = hard_clustered(N_HNSW, np.random.default_rng(seed))
+    vecs, eng = job["vecs"], job["eng"]
     qn = hard_clustered(N_QUERIES, np.random.default_rng(seed + 1))
     q = torch.from_numpy(qn).to(dev)
 
-    # 1. build on the host, flatten onto the card
-    eng = make_vector_engine("hnsw", dim=HNSW_DIM, device=dev)
+    # 1. the build on the host (started in the background), flattened onto the card
     check(type(eng.builder) is CppHNSWBuilder,
           f"{phase}: the engine built with {type(eng.builder).__name__}, not CppHNSWBuilder (no native library)")
     check((eng.builder.m, eng.builder.ef_construction, eng.ef_search) == (16, 100, 64),
           f"{phase}: engine M {eng.builder.m}, efConstruction {eng.builder.ef_construction}, ef {eng.ef_search}")
     t0 = time.perf_counter()
-    eng.add_batch(np.arange(N_HNSW), vecs)
-    t_build = time.perf_counter() - t0
+    job["thread"].join()
+    t_wait = time.perf_counter() - t0
+    if "error" in job:
+        raise job["error"]
+    t_build = job["seconds"]
+    check(len(eng) == N_HNSW, f"{phase}: the background build holds {len(eng)} rows")
     t0 = time.perf_counter()
     graph = eng.snapshot()
     torch.cuda.synchronize()
@@ -2572,7 +2646,8 @@ def hnsw_100k_phase(dev, seed: int, results: dict) -> dict:
     graph_bytes = sum(t.numel() * t.element_size()
                       for t in (graph.adjacency, graph.emb, graph.frame_ids, graph.bias, graph.entries))
     log(phase, f"CppHNSWBuilder (M 16, efConstruction 100) over {N_HNSW} x {HNSW_DIM} hard-clustered unit rows: "
-        f"build {t_build:.2f} s = {N_HNSW / t_build:.1f} rows/s (host); snapshot {t_snap:.2f} s (state export, "
+        f"build {t_build:.2f} s = {N_HNSW / t_build:.1f} rows/s (host, a background thread beside the earlier "
+        f"phases; {t_wait:.2f} s waited for it here); snapshot {t_snap:.2f} s (state export, "
         f"flattening, copy to the card); GraphIndex on the card {graph_bytes} bytes (adjacency "
         f"{tuple(graph.adjacency.shape)} int32, rows {tuple(graph.emb.shape)} f32, {graph.entries.shape[0]} entry seeds)")
 
@@ -2614,7 +2689,7 @@ def hnsw_100k_phase(dev, seed: int, results: dict) -> dict:
               f"{phase}: ef {ef} answer {v.shape} {v.dtype} {f.dtype}")
         gap = _hnsw_checks(phase, f"ef {ef}", v, f, q64, emb64, row_of, live)
         recall = AutoVectorEngine._recall(truth, f)
-        ms = median_call_ms(run)
+        ms = median_call_ms(run, iters=10)
         prof = device_profile(f"{phase} ef {ef}", run, iters=1)
         sweep[ef] = {"recall": recall, "ms": ms, "kernels": prof["events"], "busy": prof["busy"], "gap": gap}
         log(phase, f"ef {ef}, B {N_QUERIES}, k {k}: recall@{k} {recall:.4f} against K2's exact top-{k}; "
@@ -3068,6 +3143,503 @@ def orch_maint_hnsw_phase(dev, seed: int, tmp: Path, hnsw: dict) -> dict:
     return launched
 
 
+# ------------------------------------------------------------------------------- train
+
+TRAIN_STEPS = 600  # fixed in PERF.md's prediction before the first run on the card
+TRAIN_BATCH = 256  # query/document pairs a step
+TRAIN_LEN = 64
+TRAIN_LR = 1e-4
+BERT_INIT_STD = 0.02  # BERT's initializer range (HF BertConfig.initializer_range)
+N_CONCEPTS, CONCEPTS_PER_PAIR = 8_192, 12
+CONCEPT_DOC_BASE, CONCEPT_QUERY_BASE, FILLER_BASE = 1_000, 10_000, 20_000  # fillers: [20,000, vocab) in halves
+N_EVAL_DOCS, N_EVAL_QUERIES = 10_240, 256
+RESUME_AT, RESUME_STEPS = 3, 3
+
+
+def synth_pairs(rng, n: int, vocab: int = 30_522) -> dict:
+    """`n` query/document pairs that share no token: each pair holds 12 distinct
+    concepts of 8,192; the document writes concept c as token CONCEPT_DOC_BASE + c, the
+    query as CONCEPT_QUERY_BASE + c, each side padded to a length drawn from 16-64 with
+    filler tokens of its own half of [FILLER_BASE, vocab), in shuffled order. Int32 [n,
+    TRAIN_LEN] ids and masks (0 past the length)."""
+    import numpy as np
+
+    concepts = rng.integers(0, N_CONCEPTS, (n, CONCEPTS_PER_PAIR))
+    srt = np.sort(concepts, axis=1)
+    for i in np.nonzero((srt[:, 1:] == srt[:, :-1]).any(axis=1))[0]:  # about 0.8% of rows repeat one
+        concepts[i] = rng.choice(N_CONCEPTS, CONCEPTS_PER_PAIR, replace=False)
+    mid = (FILLER_BASE + vocab) // 2
+    out = {}
+    for side, base, lo, hi in (("d", CONCEPT_DOC_BASE, FILLER_BASE, mid), ("q", CONCEPT_QUERY_BASE, mid, vocab)):
+        lengths = rng.integers(16, TRAIN_LEN + 1, n)
+        toks = rng.integers(lo, hi, (n, TRAIN_LEN)).astype(np.int32)
+        toks[:, :CONCEPTS_PER_PAIR] = base + concepts
+        mask = np.arange(TRAIN_LEN)[None, :] < lengths[:, None]
+        # shuffle each row's first `length` tokens: sort random keys, the padding last
+        order = np.argsort(np.where(mask, rng.random((n, TRAIN_LEN)), 2.0), axis=1)
+        ids = np.take_along_axis(toks, order, axis=1)
+        out[f"{side}_ids"] = np.where(mask, ids, 0).astype(np.int32)
+        out[f"{side}_mask"] = mask.astype(np.int32)
+    return out
+
+
+def bert_init(model, seed: int) -> None:
+    """BERT's initialisation from a seeded generator: every matrix (the dense kernels
+    and the embedding tables) N(0, 0.02^2), LayerNorm scales 1, biases 0. From the
+    encoder's serving init (dense kernels N(0, 1/fan_in), token table N(0, 1)) the
+    trainer drives every query and document onto one vector within a few hundred steps
+    at these shapes, and the loss stays at ln(256)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 2:
+                p.copy_(torch.randn(p.shape, generator=g) * BERT_INIT_STD)
+            elif name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+
+def train_step_flops(cfg, batch: int, length: int) -> float:
+    """Model FLOPs of one training step on the padded shapes: forward and backward are
+    three times the forward's products. A token of a layer multiplies by the four
+    attention projections (4 h^2), the two MLP matrices (2 h i) and attends over the
+    sequence (2 L h for the scores and the context), 2 FLOPs a multiply-add; queries
+    and documents are 2 x batch sequences; the logits add 2 B^2 h."""
+    h, inter = cfg.hidden, cfg.intermediate
+    per_token = cfg.layers * 2 * (4 * h * h + 2 * h * inter + 2 * length * h)
+    return 3.0 * (per_token * 2 * batch * length + 2 * batch * batch * h)
+
+
+def train_phase(dev, seed: int, results: dict, tmp: Path) -> dict:
+    """[train]: the contrastive Trainer at MiniLMConfig()'s full width (BERT's random
+    initialisation from the seed, f32 parameters, bf16 compute), TRAIN_STEPS steps of TRAIN_BATCH
+    synthetic pairs of length 64 that share no token; recall@10 of N_EVAL_QUERIES
+    held-out queries over N_EVAL_DOCS held-out documents through the flat engine (K1)
+    before and after; a checkpoint resumed bit for bit under deterministic algorithms;
+    K1 held and timed at the retrieval check's shape."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.embed.minilm import MiniLMConfig, MiniLMEncoder, mean_pool
+    from wax_tpu_torch.parallel.mesh import data_mesh
+    from wax_tpu_torch.parallel.train import Trainer
+    from wax_tpu_torch.search.vector_engines import FlatVectorEngine
+
+    phase = "train"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = MiniLMConfig()
+    model = MiniLMEncoder(cfg, dtype=torch.bfloat16)
+    bert_init(model, seed)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    trainer = Trainer(model, data_mesh(dev), learning_rate=TRAIN_LR)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_pairs(rng, TRAIN_BATCH, cfg.vocab_size).items()}
+               for _ in range(TRAIN_STEPS)]
+    held = {k: torch.from_numpy(v).to(dev)
+            for k, v in synth_pairs(np.random.default_rng(seed + 1), N_EVAL_DOCS, cfg.vocab_size).items()}
+    log(phase, f"MiniLMConfig() ({cfg.layers} layers, hidden {cfg.hidden}, {cfg.heads} heads, intermediate "
+        f"{cfg.intermediate}, vocab {cfg.vocab_size}), {sum(t.numel() for t in init.values())} f32 parameters, bf16 "
+        f"compute; {TRAIN_STEPS} steps of {TRAIN_BATCH} pairs x {TRAIN_LEN} (data made in "
+        f"{time.perf_counter() - t0:.2f} s), lr {TRAIN_LR}")
+
+    def encode(params, ids, mask):
+        enc = MiniLMEncoder(cfg, dtype=torch.bfloat16)
+        enc.load_state_dict(params)
+        enc.to(dev).eval()
+        with torch.no_grad():
+            return torch.cat([mean_pool(enc(ids[i : i + 1024], mask[i : i + 1024]), mask[i : i + 1024])
+                              for i in range(0, ids.shape[0], 1024)])
+
+    def retrieval(params):
+        """recall@10 of each held-out query's own document through the flat engine."""
+        docs = encode(params, held["d_ids"], held["d_mask"])
+        qs = encode(params, held["q_ids"][:N_EVAL_QUERIES], held["q_mask"][:N_EVAL_QUERIES])
+        eng = FlatVectorEngine(cfg.hidden, device=dev)
+        eng.add_batch(np.arange(N_EVAL_DOCS), docs.cpu().numpy())
+        _, fids = eng.search(qs, 10)
+        return float((fids == np.arange(N_EVAL_QUERIES)[:, None]).any(axis=1).mean()), eng, qs
+
+    # the main path: retrieval, training, retrieval
+    reset_launch_counts()
+    recall_before, _, _ = retrieval(init)
+    state = trainer.init_state(init)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    t_train = time.perf_counter()
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, loss = trainer.step(state, batch)
+        losses.append(float(loss))  # the fetch synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    t_train = time.perf_counter() - t_train
+    recall_after, eng, qs = retrieval(state.params)
+    launched = launch_counts()
+    check(launched["K1"] == 2 and sum(launched.values()) == 2,
+          f"{phase}: the retrieval checks launched {launched}, not K1 twice")
+    check(all(np.isfinite(losses)), f"{phase}: a loss is not finite: {[x for x in losses if not np.isfinite(x)][:4]}")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first, f"{phase}: the mean of the last 10 losses {last:.4f} is not below the first 10's {first:.4f}")
+    # every query and document on one vector gives ln(B) exactly, and ties then put the
+    # lowest document ids first, which lifts recall@10 without training
+    check(last < np.log(TRAIN_BATCH) - 1.0, f"{phase}: the last losses {last:.4f} sit at ln({TRAIN_BATCH}) = "
+          f"{np.log(TRAIN_BATCH):.4f}: the encoder maps every input onto one vector")
+    check(recall_after > recall_before, f"{phase}: recall@10 after training {recall_after:.4f} is not above "
+          f"{recall_before:.4f} before")
+    timed = np.array(step_ms[3:])  # the first steps set up cuBLAS and the allocator
+    p10, p50, p90 = np.percentile(timed, [10, 50, 90])
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_LEN)
+    tokens = 2 * TRAIN_BATCH * TRAIN_LEN
+    real = float(np.mean([float(b["q_mask"].sum() + b["d_mask"].sum()) for b in batches]))
+    mfu = flops / (p50 / 1e3 * PEAK_OPS_PER_S["bf16"])
+    log(phase, f"loss {losses[0]:.4f} (step 1) -> {losses[-1]:.4f} (step {TRAIN_STEPS}); mean of the first 10 "
+        f"{first:.4f}, of the last 10 {last:.4f}; {TRAIN_STEPS} steps in {t_train:.2f} s")
+    log(phase, f"step ms (host clock ending in the loss fetch, steps 4-{TRAIN_STEPS}): p50 {p50:.3f}, p10 {p10:.3f}, "
+        f"p90 {p90:.3f}, min {timed.min():.3f}, max {timed.max():.3f}; first three {[round(x, 1) for x in step_ms[:3]]}")
+    log(phase, f"{tokens / (p50 / 1e3):.0f} tokens/s at p50 ({tokens} padded tokens a step, {real:.0f} unpadded); "
+        f"model FLOPs a step {flops:.4e} (bound {flops / PEAK_OPS_PER_S['bf16'] * 1e3:.4f} ms at bf16 "
+        f"{PEAK_OPS_PER_S['bf16'] / 1e12:.0f} TFLOP/s); train_mfu {mfu:.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(phase, f"recall@10 of {N_EVAL_QUERIES} held-out queries over {N_EVAL_DOCS} held-out documents (flat engine, "
+        f"auto -> K1, k 10): before {recall_before:.4f}, after {recall_after:.4f}; K1 launches {launched['K1']}")
+
+    # where a step's time goes
+    prof_batches = iter(batches[:4])
+    device_profile(phase, lambda: trainer.step(state, next(prof_batches)), iters=3)
+
+    # K1 at the retrieval check's shape
+    rec = _k1_snap_case(phase, eng.snapshot(), qs.float().contiguous(), 10, "train eval")
+    results["K1"]["train_eval"] = rec
+    results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], rec["max_abs_err"])
+
+    # resume: a checkpoint saved at step RESUME_AT continues as the uninterrupted run
+    ck = tmp / "train_ck.npz"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            s = trainer.init_state(init)
+            for b in batches[:RESUME_AT]:
+                s, _ = trainer.step(s, b)
+            trainer.save_checkpoint(s, ck)
+            cont = []
+            for b in batches[RESUME_AT : RESUME_AT + RESUME_STEPS]:
+                s, loss = trainer.step(s, b)
+                cont.append(float(loss))
+            r = trainer.load_checkpoint(trainer.init_state(init), ck)
+            check(int(r.step) == RESUME_AT and int(r.opt_state.count) == RESUME_AT,
+                  f"{phase}: the checkpoint resumed at step {int(r.step)}")
+            resumed = []
+            for b in batches[RESUME_AT : RESUME_AT + RESUME_STEPS]:
+                r, loss = trainer.step(r, b)
+                resumed.append(float(loss))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0] for w in caught if "deterministic" in str(w.message)})
+    same_params = all(torch.equal(s.params[n], r.params[n]) for n in s.params)
+    if nondet:
+        log(phase, f"resume: ops without a deterministic CUDA form: {nondet}; losses held within rtol 1e-5")
+        check(np.allclose(resumed, cont, rtol=1e-5, atol=0), f"{phase}: resumed losses {resumed} != {cont}")
+    else:
+        check(resumed == cont and same_params, f"{phase}: resumed losses {resumed} differ from the uninterrupted "
+              f"run's {cont} (parameters equal: {same_params})")
+    log(phase, f"resume under torch.use_deterministic_algorithms(True): saved at step {RESUME_AT} "
+        f"({ck.stat().st_size} bytes, 305 leaves), {RESUME_STEPS} steps resumed: losses {resumed} "
+        f"{'==' if resumed == cont else '!='} the uninterrupted run's, parameters bit-equal {same_params}")
+    log(phase, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+    return {"K1": launched["K1"]}
+
+
+# --------------------------------------------------------------------------------- mcp
+
+N_MCP_NOTES = 256  # wax_remember calls of the session; each round also searches and recalls
+MCP_STDIO_NOTE = 200  # the note the stdio server must find (never forgotten)
+
+
+def _mcp_call(mid, name: str, args: dict) -> dict:
+    return {"jsonrpc": "2.0", "id": mid, "method": "tools/call", "params": {"name": name, "arguments": args}}
+
+
+def _mcp_note(i: int, words, rng) -> str:
+    return f"agent note {i} zq{i:04d}marker: " + " ".join(rng.choice(words, 12))
+
+
+def build_mcp_store(path: str, seed: int, device: str) -> None:
+    """[mcp]'s store: the smoke corpus's 102,400 documents through remember_batch
+    (HashEmbedder(384), calls of 1,024) on `device`, flushed and closed; prints its
+    seconds and the file's bytes. `start_mcp_store` runs it in a process of its own."""
+    from wax_tpu_torch.embed.hash_embedder import HashEmbedder
+    from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
+
+    _, docs, _ = make_corpus(seed)
+    t0 = time.perf_counter()
+    orch = MemoryOrchestrator(Path(path), HashEmbedder(384), OrchestratorConfig(), device=device)
+    try:
+        for i in range(0, len(docs), 1024):
+            orch.remember_batch(docs[i : i + 1024])
+        orch.flush()
+    finally:
+        orch.close()
+    print(f"{len(docs)} docs through remember_batch (HashEmbedder(384), calls of 1,024) and flush in "
+          f"{time.perf_counter() - t0:.2f} s; file {Path(path).stat().st_size} bytes", flush=True)
+
+
+def start_mcp_store(tmp: Path, seed: int, dev):
+    """Build [mcp]'s store on `dev` in a process of its own (`build_mcp_store`), which
+    runs on the host beside [train]; `mcp_phase` waits for it. Returns (path,
+    process)."""
+    path = tmp / "mcp" / "memory.mv2s"
+    path.parent.mkdir(parents=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.build_mcp_store(sys.argv[2], int(sys.argv[3]), sys.argv[4])")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(REPO), str(path), str(seed), str(dev)], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return path, proc
+
+
+def mcp_phase(dev, seed: int, tmp: Path, store) -> dict:
+    """[mcp]: the MCP server over a store of the smoke corpus's 102,400 documents
+    (HashEmbedder(384): the card has no MiniLM weights, and `_select_embedder` keeps
+    the store's hash embedder), built by `start_mcp_store` (`store`: its path and
+    process). build_server in process: a profiled window of 32 searches (K1 at B 1 over
+    the reopened store's snapshot), then an agent session of 1,024 JSON-RPC messages
+    (p50/p99 per tool; K1 launched by each vector-lane call until the remembers grow
+    the snapshot past K1's 131,072 rows), 64 searches of a server reopened over the
+    flushed store held against a CPU server over its copy (the doctor runs meanwhile); `python -m wax_tpu_torch.surfaces.mcp_server` over stdio finds a
+    flushed note; `python -m wax_tpu_torch.surfaces.cli mcp doctor` names the card."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.search import engine_cache
+    from wax_tpu_torch.surfaces.mcp_server import build_server
+    from wax_tpu_torch.types import SearchRequest
+    from wax_tpu_torch.utils.profiling import reset_spans, span_stats
+
+    phase = "mcp"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    words, _, queries = make_corpus(seed)
+
+    # 1. the store, built in a process of its own beside [train]
+    path, proc = store
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"{phase}: the store's build exited {proc.returncode}: "
+          f"{err.strip().splitlines()[-5:]}")
+    log(phase, f"store (a process of its own, beside [train]; {time.perf_counter() - t0:.2f} s waited for it "
+        f"here): {out.strip()}")
+
+    # 2. the server, in process, on the card
+    t0 = time.perf_counter()
+    srv = build_server(path)
+    cpu_srv = doctor = stdio = None
+    try:
+        check(srv.orch.device.type == "cuda", f"{phase}: build_server serves on {srv.orch.device}")
+        ident = srv.orch.memoizer.provider.identity
+        check(ident.startswith("hash-embedder"), f"{phase}: _select_embedder chose {ident}")
+        warm = srv.orch.wait_for_warmup(timeout=300)
+        cap0 = srv.orch.engine.vector.snapshot().capacity
+        log(phase, f"build_server: {time.perf_counter() - t0:.3f} s to a warm server (warmup done: {warm}); "
+            f"embedder {ident}, {len(srv.orch.engine.vector)} vectors in a dense snapshot of {cap0} rows")
+
+        # where the time goes on the reopened store: 32 searches through the server (K1)
+        batches = iter([queries[3][128:160], queries[3][160:192]])
+        prof_k1 = device_profile(phase, lambda: [srv.handle(_mcp_call(0, "wax_search", {"query": q}))
+                                                 for q in next(batches)], iters=1)
+        check(prof_k1["launched"].get("K1", 0) == 32,
+              f"{phase}: the profiled window launched K1 {prof_k1['launched'].get('K1', 0)} times for 32 searches")
+
+        # 3. the agent session
+        rng = np.random.default_rng(seed + 7)
+        lat: dict = collections.defaultdict(list)
+        ids = itertools.count(1)
+        n_msgs = 0
+
+        def send(label, msg):
+            nonlocal n_msgs
+            t0 = time.perf_counter()
+            resp = srv.handle(msg)
+            torch.cuda.synchronize()
+            lat[label].append((time.perf_counter() - t0) * 1e3)
+            n_msgs += 1
+            if "id" not in msg:
+                check(resp is None, f"{phase}: a notification got {resp}")
+                return None
+            check(resp is not None and resp.get("jsonrpc") == "2.0" and resp.get("id") == msg["id"]
+                  and "result" in resp and "error" not in resp, f"{phase}: {label} answered {str(resp)[:300]}")
+            if msg.get("method") != "tools/call":
+                return resp["result"]
+            return json.loads(resp["result"]["content"][0]["text"])
+
+        reset_spans()
+        reset_launch_counts()
+        t_session = time.perf_counter()
+        send("initialize", {"jsonrpc": "2.0", "id": next(ids), "method": "initialize", "params": {}})
+        send("notifications/initialized", {"jsonrpc": "2.0", "method": "notifications/initialized"})
+        tools = send("tools/list", {"jsonrpc": "2.0", "id": next(ids), "method": "tools/list"})["tools"]
+        check(len(tools) == 22, f"{phase}: tools/list lists {len(tools)} tools")
+        send("wax_session_start", _mcp_call(next(ids), "wax_session_start", {"name": "chip-smoke"}))
+        # the agent looks things up, then writes its notes
+        for i in range(N_MCP_NOTES):
+            hits = send("wax_search", _mcp_call(next(ids), "wax_search", {"query": queries[0][i]}))["hits"]
+            check(len(hits) == 10, f"{phase}: wax_search {queries[0][i]!r} returned {len(hits)} hits")
+            ctx = send("wax_recall", _mcp_call(next(ids), "wax_recall", {"query": queries[1][i]}))
+            check(ctx["items"] and ctx["total_tokens"] > 0, f"{phase}: wax_recall {queries[1][i]!r} found nothing")
+        lookup_k1, lookup_vec = launch_counts()["K1"], span_stats()["search.vector_lane"]["count"]
+        note_ids = []
+        for i in range(N_MCP_NOTES):
+            note = {"content": _mcp_note(i, words, rng), "tags": ["agent"]}
+            note_ids.append(send("wax_remember", _mcp_call(next(ids), "wax_remember", note))["document_id"])
+        cap1 = srv.orch.engine.vector.snapshot().capacity
+        for j in range(22):
+            send("wax_entity_upsert", _mcp_call(next(ids), "wax_entity_upsert",
+                                                {"name": f"project {j}", "kind": "project", "aliases": [f"p{j}"]}))
+        for j in range(21):
+            send("wax_fact_assert", _mcp_call(next(ids), "wax_fact_assert", {
+                "subject": f"project {j}", "predicate": "status", "value": str(rng.choice(words)),
+                "evidence_frames": [note_ids[j]]}))
+        for j in range(21):
+            facts = send("wax_facts_query", _mcp_call(next(ids), "wax_facts_query", {"subject": f"project {j}"}))
+            check(len(facts["facts"]) == 1, f"{phase}: facts of project {j}: {facts}")
+        for j in range(16):
+            send("wax_handoff", _mcp_call(next(ids), "wax_handoff", {
+                "content": f"handoff {j}: " + " ".join(rng.choice(words, 8)), "project": "chip-smoke",
+                "pending_tasks": [f"task {j}"]}))
+            got = send("wax_handoff_latest", _mcp_call(next(ids), "wax_handoff_latest", {"project": "chip-smoke"}))
+            check(got["found"] and got["content"].startswith(f"handoff {j}:"), f"{phase}: handoff_latest {got}")
+        variants = [{"mode": "text"}, {"mode": "vector"}, {"include_diagnostics": True},
+                    {"frame_ids": note_ids[:32]}]
+        for j in range(88):
+            send("wax_search (options)", _mcp_call(next(ids), "wax_search",
+                                                   {"query": queries[2][j], **variants[j % 4]}))
+        tl = send("wax_timeline", _mcp_call(next(ids), "wax_timeline", {"limit": 50}))
+        check(len(tl["frames"]) == 50, f"{phase}: wax_timeline listed {len(tl['frames'])} frames")
+        stats = send("wax_stats", _mcp_call(next(ids), "wax_stats", {}))
+        forgotten = [fid for i, fid in enumerate(note_ids) if i != MCP_STDIO_NOTE][:64]
+        for fid in forgotten:
+            check(send("wax_forget", _mcp_call(next(ids), "wax_forget", {"frame_id": fid}))["deleted"],
+                  f"{phase}: wax_forget {fid} deleted nothing")
+        gen = send("wax_flush", _mcp_call(next(ids), "wax_flush", {}))["generation"]
+        send("wax_session_end", _mcp_call(next(ids), "wax_session_end", {}))
+        t_session = time.perf_counter() - t_session
+        launched = launch_counts()
+        vec_calls = span_stats()["search.vector_lane"]["count"]
+        check(n_msgs == 1024, f"{phase}: the session sent {n_msgs} messages")
+        grown = cap1 > 131_072  # flat_scan's `auto` serves K1 up to 131,072 rows, the blockmax scan above
+        check(launched["K1"] > 0 and lookup_k1 == lookup_vec and launched["K1"] == (lookup_vec if grown else vec_calls),
+              f"{phase}: K1 launched {launched['K1']} times, {lookup_k1} of them for the {lookup_vec} vector-lane "
+              "calls before the remembers")
+        log(phase, f"session: {n_msgs} JSON-RPC messages in {t_session:.2f} s ({n_msgs / t_session:.1f} messages/s; "
+            f"host clock around McpServer.handle ending in a device sync); flush generation {gen}; "
+            f"{stats['vector_count']} vectors, {stats['lex_docs']} lex docs before the forgets")
+        for label, ms in sorted(lat.items(), key=lambda kv: -len(kv[1])):
+            p50, p99 = np.percentile(ms, [50, 99])
+            log(phase, f"  {label}: {len(ms)} calls, p50 {p50:.3f} ms, p99 {p99:.3f} ms")
+        log(phase, f"launches over the session: K1 {launched['K1']} (= the {lookup_vec} vector-lane calls of the "
+            f"searches and recalls over the reopened store's {cap0}-row snapshot); the remembers grew it to {cap1} "
+            f"rows, so the other {vec_calls - lookup_vec} vector-lane calls ran "
+            f"{'the plain blockmax scan (K1 serves up to 131,072 rows)' if grown else 'K1'}; other port kernels "
+            f"{({k: v for k, v in launched.items() if v and k != 'K1'})}")
+
+        # 4. the same 64 searches on the card and on the CPU, each server just opened over the
+        # flushed store (a copy for the CPU), so both serve the same snapshot on the same route
+        reqs = [SearchRequest(query=q, top_k=10, embedding=srv.orch.engine.embed_query(q)) for q in queries[3][:64]]
+        srv.close()
+        srv = None
+        engine_cache.clear()
+        cpu_dir = tmp / "mcp_cpu"
+        shutil.copytree(path.parent, cpu_dir)
+        t0 = time.perf_counter()
+        srv = build_server(path)
+        cap2 = srv.orch.engine.vector.snapshot().capacity
+        json_card = [srv.handle(_mcp_call(i, "wax_search", {"query": r.query})) for i, r in enumerate(reqs)]
+        card = [srv.orch.search(r) for r in reqs]
+        bm_card, vec_card = _orch_lanes(srv.orch, reqs)
+        srv.close()
+        srv = None
+        engine_cache.clear()
+        # 5. meanwhile, in processes of their own: the stdio server over the flushed store,
+        # and the doctor (its store check on a path of its own: a read-only open of the
+        # served store would wait on the stdio server's writer lease)
+        marker = f"zq{MCP_STDIO_NOTE:04d}marker"
+        lines = [{"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {}},
+                 {"jsonrpc": "2.0", "id": 2, "method": "tools/list"},
+                 _mcp_call(3, "wax_recall", {"query": marker})]
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        t_children = time.perf_counter()
+        stdio = subprocess.Popen([sys.executable, "-m", "wax_tpu_torch.surfaces.mcp_server"], cwd=REPO,
+                                 env=dict(env, WAX_TPU_STORE=str(path)), stdin=subprocess.PIPE,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        doctor = subprocess.Popen([sys.executable, "-m", "wax_tpu_torch.surfaces.cli", "mcp", "doctor", "--store",
+                                   str(tmp / "mcp_doctor" / "memory.mv2s")], cwd=REPO, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cpu_srv = build_server(cpu_dir / path.name, device="cpu")
+        json_cpu = [cpu_srv.handle(_mcp_call(i, "wax_search", {"query": r.query})) for i, r in enumerate(reqs)]
+        cpu = [cpu_srv.orch.search(r) for r in reqs]
+        bm_cpu, vec_cpu = _orch_lanes(cpu_srv.orch, reqs)
+        _lanes_agree(phase, "BM25", [r.query for r in reqs], bm_card, bm_cpu)
+        vec = _vector_lanes_agree(phase, "vector", reqs, vec_card, vec_cpu, cpu_srv.orch.engine.vector.snapshot())
+        fdiff = _fused_agree(phase, "mcp", cpu_srv.orch, reqs, card, cpu, vec_card, vec_cpu)
+        json_equal = sum(a == b for a, b in zip(json_card, json_cpu))
+        cpu_srv.close()
+        cpu_srv = None
+        equal = (len(reqs) - fdiff) / len(reqs)
+        log(phase, f"CPU cross-check (64 searches, the card's server and a CPU server each just opened over the "
+            f"flushed store ({cap2}-row dense snapshot) or its copy, {time.perf_counter() - t0:.1f} s): BM25 lanes equal; vector lanes equal on {len(reqs) - vec['differ']}, "
+            f"the rest near-ties by exact score (id overlap {vec['overlap']:.4f}); fused top-10 equal on "
+            f"{len(reqs) - fdiff} ({100 * equal:.1f}%), JSON-RPC responses equal on {json_equal}")
+        check(equal >= ORCH_FUSED_FLOOR, f"{phase}: fused top-10 equal on {100 * equal:.1f}% of queries, under the "
+              f"floor {100 * ORCH_FUSED_FLOOR:.0f}%")
+        doc_out, doc_err = doctor.communicate(timeout=300)
+        # its start (imports, the store's open, warmup) ran meanwhile; now the messages, then EOF
+        io_out, io_err = stdio.communicate(input="".join(json.dumps(m) + "\n" for m in lines), timeout=600)
+        t_children = time.perf_counter() - t_children
+    finally:
+        for s_ in (srv, cpu_srv):
+            if s_ is not None:
+                s_.close()
+        engine_cache.clear()
+        for child in (doctor, stdio):
+            if child is not None and child.poll() is None:
+                child.kill()
+                child.communicate()
+    dev_line = next((ln for ln in doc_out.splitlines() if "devices:" in ln), "")
+    check(doctor.returncode == 0 and dev_line.startswith("[ok]") and torch.cuda.get_device_name(0) in dev_line,
+          f"{phase}: mcp doctor exited {doctor.returncode}: {doc_out.strip()[-400:]} {doc_err.strip()[-400:]}")
+    log(phase, f"mcp doctor (beside the CPU cross-check): exit 0; {dev_line}")
+
+    # 6. the stdio server's replies
+    err_tail = io_err.strip().splitlines()[-5:]
+    check(stdio.returncode == 0, f"{phase}: the stdio server exited {stdio.returncode}: {err_tail}")
+    replies = []
+    for line in io_out.splitlines():
+        try:
+            replies.append(json.loads(line))
+        except json.JSONDecodeError:
+            fail(f"{phase}: the stdio server wrote a line that is not JSON: {line[:200]!r}")
+    check([r.get("id") for r in replies] == [1, 2, 3] and all(r.get("jsonrpc") == "2.0" and "result" in r
+                                                              for r in replies),
+          f"{phase}: stdio replies {str(replies)[:300]}")
+    recalled = json.loads(replies[2]["result"]["content"][0]["text"])
+    check(marker in recalled["context"], f"{phase}: the stdio server's wax_recall did not find note "
+          f"{MCP_STDIO_NOTE}: {recalled['context'][:200]!r}")
+    log(phase, f"stdio: python -m wax_tpu_torch.surfaces.mcp_server over the flushed store answered initialize, "
+        f"tools/list and a wax_recall that found note {MCP_STDIO_NOTE}; exit code 0 on closed stdin, "
+        f"{len(replies)} replies, all JSON-RPC; it and the doctor, beside the CPU cross-check, in {t_children:.2f} s; "
+        f"its stderr: {err_tail}")
+
+    log(phase, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds "
+        f"{time.perf_counter() - t_phase:.1f}")
+    return {"K1": launched["K1"]}
+
+
 # -------------------------------------------------------------------------------- main
 
 
@@ -3076,11 +3648,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed for all generated data")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    # [train]'s resume check runs under torch.use_deterministic_algorithms, which needs
+    # cuBLAS's fixed workspace; it is read when cuBLAS starts, so it is set first
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev, smi = device_phase()
     sys.path.insert(0, str(REPO))
     import wax_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     build_phase()
+    hnsw_job = start_hnsw_build(dev, args.seed)  # [hnsw_100k]'s host build, beside the phases before it
     t0 = time.perf_counter()
     results = kernel_phase(dev, args.seed)
     log("kernels", f"phase seconds {time.perf_counter() - t0:.1f}")
@@ -3116,7 +3692,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    path_g = hnsw_100k_phase(dev, args.seed, results)
+    path_g = hnsw_100k_phase(dev, args.seed, results, hnsw_job)
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="wax-orch-hnsw-"))
     try:
@@ -3125,7 +3701,20 @@ def main(argv=None) -> int:
         path_mh = orch_maint_hnsw_phase(dev, args.seed, tmp, path_h)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches["K1"] += path_f["K1"] + path_m["K1"] + path_mh["K1"]
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="wax-train-"))
+    store = None
+    try:
+        store = start_mcp_store(tmp, args.seed, dev)  # [mcp]'s store, built beside [train]
+        path_t = train_phase(dev, args.seed, results, tmp)
+        torch.cuda.empty_cache()
+        path_p = mcp_phase(dev, args.seed, tmp, store)
+    finally:
+        if store is not None and store[1].poll() is None:
+            store[1].kill()
+            store[1].communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches["K1"] += path_f["K1"] + path_m["K1"] + path_mh["K1"] + path_t["K1"] + path_p["K1"]
     launches["K2"] += path_g["K2"]
     launches["K3"] = path_a["K3"] + path_b["K3"] + path_f["K3"]
     launches["K4"] = path_a["K4"] + path_b["K4"]
@@ -3155,7 +3744,7 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{key: r[key] for key in ("x768", "rows_10240", "engine_1m_l2_64", "hybrid_1m_wide", "ivf_1m", "auto_2m",
-                                       "auto_2m_flat", "orch_b1", "orch_maint", "hnsw_100k") if key in r},
+                                       "auto_2m_flat", "orch_b1", "orch_maint", "hnsw_100k", "train_eval") if key in r},
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -12,7 +12,9 @@ Changed copies are left out by name, each for the change its header states:
 into wax_tpu_torch/_build/native/, safely when several processes build at once),
 `index/graph_cpp.py` (the port's native library; `snapshot` passes `device` through),
 `session.py` (`device`) and `multimodal/photo.py`, `multimodal/video.py` (`device`,
-passed to the inner orchestrator). `search/snippet.py` needs no change: it runs the
+passed to the inner orchestrator), `surfaces/mcp_server.py`, `surfaces/cli.py` and
+`surfaces/repo.py` (`device`; no XLA compile cache; the doctor on torch) and
+`utils/backend.py` (the probe lists CUDA devices). `search/snippet.py` needs no change: it runs the
 port's `match_search` on a one-document port builder, so it is held verbatim.
 """
 from pathlib import Path
@@ -34,9 +36,11 @@ COPIES = [
     "rag/config.py", "rag/context.py", "rag/importance.py", "rag/surrogates.py", "rag/builder.py",
     "orchestrator/config.py", "orchestrator/stats.py", "utils/concurrency.py",
     "text/pdf.py", "rag/answer.py", "multimodal/protocols.py", "multimodal/ocr.py",
+    "surfaces/license.py", "surfaces/repo_tui.py", "surfaces/crash_harness.py", "utils/diagnostics.py",
 ]
 CHANGED = ["search/match.py", "utils/profiling.py", "native/build.py", "index/graph_cpp.py", "session.py",
-           "multimodal/photo.py", "multimodal/video.py"]
+           "multimodal/photo.py", "multimodal/video.py", "surfaces/mcp_server.py", "surfaces/cli.py",
+           "surfaces/repo.py", "utils/backend.py"]
 
 
 def _strip_header(text: str) -> str:

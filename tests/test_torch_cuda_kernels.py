@@ -852,3 +852,40 @@ def test_orchestrator_maintenance_on_the_card_equals_cpu(dev, tmp_path):
     finally:
         card.close()
         cpu.close()
+
+
+def test_trainer_on_the_card_equals_cpu(dev, tmp_path):
+    """The contrastive Trainer at the CPU tests' small config in f32 (TF32 off): three
+    steps on the card give the CPU's losses within rtol 1e-4, and a checkpoint written
+    on the card resumes on the CPU with the card's next losses."""
+    from wax_tpu_torch.embed.minilm import MiniLMConfig, MiniLMEncoder
+    from wax_tpu_torch.parallel.mesh import data_mesh
+    from wax_tpu_torch.parallel.train import Trainer
+
+    cfg = MiniLMConfig(hidden=64, layers=2, heads=4, intermediate=128, vocab_size=1000, max_positions=64)
+    model = MiniLMEncoder(cfg, dtype=torch.float32)
+    model.init_random(torch.Generator().manual_seed(0))
+    init = {n: t.clone() for n, t in model.state_dict().items()}
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 1000, (4, 16, 24)).astype(np.int32)
+    mask = (np.arange(24)[None, None, :] < rng.integers(8, 25, (4, 16, 1))).astype(np.int32)
+    batches = [{"q_ids": ids[i] * mask[i], "q_mask": mask[i], "d_ids": ids[(i + 1) % 4] * mask[i],
+                "d_mask": mask[i]} for i in range(4)]
+    losses, states = {}, {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        trainer = Trainer(model, data_mesh(device), learning_rate=2e-5)
+        state = trainer.init_state(init)
+        out = []
+        for b in batches[:3]:
+            state, loss = trainer.step(state, b)
+            out.append(float(loss))
+        losses[name], states[name] = out, (trainer, state)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    card, card_state = states["cuda"]
+    card.save_checkpoint(card_state, tmp_path / "ck.npz")
+    _, next_card = card.step(card_state, batches[3])
+    cpu, _ = states["cpu"]
+    resumed = cpu.load_checkpoint(cpu.init_state(init), tmp_path / "ck.npz")
+    assert int(resumed.step) == 3
+    _, next_cpu = cpu.step(resumed, batches[3])
+    np.testing.assert_allclose(float(next_cpu), float(next_card), rtol=1e-4)

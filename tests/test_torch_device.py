@@ -4,6 +4,7 @@
 without a card it raises instead of falling back to the CPU quietly. Whether a card
 is present is read from `torch.cuda.is_available`, monkeypatched here both ways.
 """
+import os
 import shutil
 import tempfile
 from pathlib import Path
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from wax_tpu_torch.embed.hash_embedder import HashEmbedder
-from wax_tpu_torch.embed.minilm import MiniLMConfig, MiniLMEmbedder
+from wax_tpu_torch.embed.minilm import MiniLMConfig, MiniLMEmbedder, MiniLMEncoder
 from wax_tpu_torch.index.dense import DenseIndexBuilder
 from wax_tpu_torch.index.graph import HNSWBuilder, graph_index_from_numpy
 from wax_tpu_torch.index.ivf import build_ivf, ivf_index_from_numpy
@@ -22,6 +23,10 @@ from wax_tpu_torch.multimodal.photo import PhotoRAGOrchestrator
 from wax_tpu_torch.multimodal.video import VideoRAGOrchestrator
 from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
 from wax_tpu_torch.parallel.mesh import data_mesh
+from wax_tpu_torch.parallel.train import Trainer
+from wax_tpu_torch.surfaces import cli as port_cli
+from wax_tpu_torch.surfaces.mcp_server import build_server
+from wax_tpu_torch.surfaces.repo import RepoIndexer
 from wax_tpu_torch.search.engine import HybridSearchEngine
 from wax_tpu_torch.search.vector_engines import (AutoVectorEngine, FlatVectorEngine, HNSWVectorEngine, IVFVectorEngine,
                                                  make_vector_engine)
@@ -99,6 +104,53 @@ def _maintained_device(engine: str, step: str, **kw):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _server_device(**kw):
+    """The device of build_server's orchestrator over a fresh store (hash embedder)."""
+    tmp = tempfile.mkdtemp()
+    saved = os.environ.get("WAX_TPU_EMBEDDER")
+    os.environ["WAX_TPU_EMBEDDER"] = "hash"
+    try:
+        srv = build_server(Path(tmp) / "memory.wxs", **kw)
+        srv.close()
+        return srv.orch.device
+    finally:
+        if saved is None:
+            os.environ.pop("WAX_TPU_EMBEDDER", None)
+        else:
+            os.environ["WAX_TPU_EMBEDDER"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _repo_device(**kw):
+    tmp = tempfile.mkdtemp()
+    try:
+        idx = RepoIndexer(Path(tmp) / "repo.wxs", HashEmbedder(8), **kw)
+        idx.close()
+        return idx.orch.device
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cli_device(**kw):
+    """The device the CLI's `remember` opened its store's orchestrator on."""
+    tmp = tempfile.mkdtemp()
+    seen = []
+    real = port_cli._orchestrator
+
+    def spy(args):
+        orch = real(args)
+        seen.append(orch.device)
+        return orch
+
+    port_cli._orchestrator = spy
+    try:
+        assert port_cli.main(["remember", "a note", "--store", str(Path(tmp) / "cli.wxs")], **kw) == 0
+        return seen[0]
+    finally:
+        port_cli._orchestrator = real
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 ENTRY_POINTS = {
     "MiniLMEmbedder": lambda **kw: MiniLMEmbedder(cfg=TINY, dtype=torch.float32, **kw).device,
     "DenseIndexBuilder.snapshot": lambda **kw: _dense().snapshot(**kw).device,
@@ -130,6 +182,10 @@ ENTRY_POINTS = {
     "Maintainer.compact_indexes(ivf)": lambda **kw: _maintained_device("ivf", "compact_indexes", **kw),
     "Maintainer.rewrite_live_set(flat)": lambda **kw: _maintained_device("flat", "rewrite_live_set", **kw),
     "Maintainer.rewrite_live_set(hnsw)": lambda **kw: _maintained_device("hnsw", "rewrite_live_set", **kw),
+    "Trainer": lambda **kw: Trainer(MiniLMEncoder(TINY), data_mesh(**kw) if kw else None).device,
+    "build_server": _server_device,
+    "RepoIndexer": _repo_device,
+    "cli.main(remember)": _cli_device,
 }
 
 

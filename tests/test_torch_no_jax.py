@@ -50,7 +50,8 @@ def test_port_imports_without_jax():
         "index.ivf", "index.graph", "index.graph_cpp", "ops.beam_search", "session",
         "orchestrator.serialization", "orchestrator.orchestrator", "orchestrator.maintenance",
         "text.pdf", "rag.answer", "multimodal.protocols", "multimodal.ocr", "multimodal.photo",
-        "multimodal.video",
+        "multimodal.video", "parallel.train", "surfaces.mcp_server", "surfaces.cli", "surfaces.repo",
+        "surfaces.repo_tui", "surfaces.crash_harness", "surfaces.license", "utils.backend", "utils.diagnostics",
     }
     assert {f"wax_tpu_torch.{m}" for m in expected} <= set(res["mods"])
 
@@ -67,3 +68,29 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+_CLI = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+sys.modules["wax_tpu"] = None
+sys.argv = ["wax-tpu-torch"] + sys.argv[1:]
+runpy.run_module("wax_tpu_torch.surfaces.cli", run_name="__main__")
+"""
+
+
+def test_port_cli_runs_without_jax(tmp_path):
+    """`python -m wax_tpu_torch.surfaces.cli` with jax, flax and wax_tpu blocked:
+    `--version` answers, and `mcp doctor` checks torch and, with no CUDA device here,
+    fails its devices check with the probe's diagnosis (exit 1)."""
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-c", _CLI, "--version"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.startswith("wax-tpu-torch "), out.stderr
+    out = subprocess.run([sys.executable, "-c", _CLI, "mcp", "doctor", "--store", str(tmp_path / "s.wxs")],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 1, out.stderr
+    assert "[ok] torch" in out.stdout and "[FAIL] devices: RuntimeError: no CUDA device" in out.stdout
+    assert "] jax" not in out.stdout

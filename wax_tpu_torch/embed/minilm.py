@@ -2,7 +2,8 @@
 
 PyTorch port of `wax_tpu.embed.minilm`: a 6-layer, 384-wide BERT encoder, mean pooling
 and L2 normalisation, fed by the WordPiece tokenizer. Submodules carry the flax tree's
-names (`tok_emb`, `layer_0.attention.query`, ...), so `params_from_flax` is a table.
+names (`tok_emb`, `layer_0.attention.query`, ...), so `params_from_flax` and its inverse
+`params_to_flax` are tables.
 
 Numerics follow the JAX package, so both compute the same thing on the same weights:
 parameters are stored in f32 and dense layers run in the compute dtype (bf16 by
@@ -37,6 +38,8 @@ __all__ = [
     "MiniLMEmbedder",
     "mean_pool",
     "params_from_flax",
+    "params_to_flax",
+    "flax_leaf",
     "load_hf_checkpoint",
 ]
 
@@ -201,6 +204,35 @@ def params_from_flax(tree) -> dict[str, torch.Tensor]:
             out[".".join(prefix + [leaf])] = torch.tensor(arr.T if transpose else arr)
 
     walk(tree, [])
+    return out
+
+
+def flax_leaf(name: str) -> tuple[tuple[str, ...], bool]:
+    """(path in the flax params, transposed) of a `MiniLMEncoder` state_dict entry:
+    Dense weights [out, in] are kernels [in, out], LayerNorm weights are `scale`, the
+    embedding tables are `embedding`."""
+    *path, leaf = name.split(".")
+    if leaf == "bias":
+        return (*path, "bias"), False
+    if path[-1].endswith("_emb"):
+        return (*path, "embedding"), False
+    if path[-1].endswith("_ln"):
+        return (*path, "scale"), False
+    return (*path, "kernel"), True
+
+
+def params_to_flax(state_dict) -> dict:
+    """The inverse of `params_from_flax`: `MiniLMEncoder`'s state_dict (tensors or
+    arrays) as the JAX package's flax params, a nested dict of f32 numpy arrays. Both
+    directions copy values exactly, so a round trip is the identity."""
+    out: dict = {}
+    for name, val in state_dict.items():
+        path, transpose = flax_leaf(name)
+        arr = np.array(val.detach().cpu() if isinstance(val, torch.Tensor) else val, np.float32)
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T) if transpose else arr
     return out
 
 
