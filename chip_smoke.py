@@ -38,7 +38,9 @@ Phases, each printing lines tagged with its name:
             "auto" scans with chunkmax: K6 then K7). 4 batches of 256 queries (`any`
             x3, `all` x1) through the vector lane, `search.unified._bm25_run` (budgeted
             candidates, then the exact rescore K3) and host RRF; then again with
-            `lex_sharded` (chunked candidates K4, then K3). Checks: repeat serving
+            `lex_sharded` (chunked candidates K4, then K3); the BM25 builder is built
+            in a process of its own from the start, beside the phases before this one.
+            Checks: repeat serving
             bit-identical, the vector lane against the plain exact scan, both BM25
             lanes against the port's plain path on a CPU copy. Then, in a window of its
             own, `bm25_candidates_topk_pallas` on the snapshot without its fused
@@ -54,6 +56,13 @@ Phases, each printing lines tagged with its name:
             against K3) held against their plain twins on this path's own inputs (K5
             wide timed as "hybrid_1m_wide"); the fused ids against the same program on a
             CPU copy
+  hybrid_1m_sharded the same program on [hybrid_1m]'s rows, queries, term ids and
+            postings split over 2 corpus shards (524,288 rows a shard: K6 + K7, K4, K3
+            each shard), 4 shards (262,144: K1, K4, K3) and the 2 x 2 two-level mesh
+            (equal to 4 shards bit for bit): per-call median of 20, launches a call
+            (each kernel exactly S), busy share, the fused ids against the same program
+            on a CPU copy (32 queries); 4 distinct cards when the machine has them,
+            else 4 logical shards on the one card (printed)
   exact_30k path (c): 30,720 documents of the smoke corpus, encoded by the full-width
             MiniLM, in a HybridSearchEngine with `lex_sharded` and the "auto" budget,
             which keeps this store exact: its sharded BM25 lane resolves to K8 (the
@@ -73,6 +82,18 @@ Phases, each printing lines tagged with its name:
             against the plain probe loop (near-ties only), recall@10 against the exact
             chunkmax lane (K6 + K7) >= 0.93; K7 held against its plain twin at the
             call's own probes ("ivf_1m" under K7 in the kernels line); calls per second
+  shard_10m BASELINE.md's scale configuration: 10,485,760 x 768 unit rows in bf16
+            (16.1 GB) drawn on the card in seeded 1M-row chunks, split over 4 shards:
+            sharded_flat_scan_topk at B 256, k 10 on the flat mesh and the 2 x 2 mesh
+            (bit-equal), against one shard of the same rows on 64 queries (scores within
+            rtol 1e-6, ids equal but near-ties of the k-th score), a 1/8-grid slab of
+            1,048,576 rows bit-equal on one shard, 4 shards and 2 x 2 (and equal to the
+            float64 products); ms a batch (median of 10) on each mesh, each shard's
+            device ms and the merge's, busy share, peak memory, the synchronising calls
+            of one call at S 1, 2 and 4 (set_sync_debug_mode "warn"; they must not grow
+            with S); then sharded_ivf_search_topk over [ivf_1m]'s index (kept, not
+            rebuilt) on 4 slot shards: scores equal to the one-device plain probe loop
+            within rtol 1e-6, recall@10 against [ivf_1m]'s exact lane, ms a call
   auto_2m   path (e): make_vector_engine("auto", dim=768) with its defaults over
             2,097,152 x 768 rows of the same mixture: the routing decision (the bf16
             flat lane's exact answers for 64 sampled queries, K6 + K7; IVF builds of
@@ -171,6 +192,23 @@ Phases, each printing lines tagged with its name:
             card named); `python -m wax_tpu_torch.surfaces.mcp_server` over stdio on
             that store finds a note remembered and flushed above and exits 0 on
             closed stdin
+  orch_sharded [mcp]'s flushed store reopened read-only as
+            OrchestratorConfig(sharded_lanes=True) over 4 shards and again with
+            mesh_slices=2: N_ORCH_SHARDED search and recall calls one at a time (p50,
+            p99), the cold open; the exact BM25 lane through K8 on each shard (K8 = 4 x
+            the lane's sharded runs); the store's `auto` vector segment keeps its engine
+            (K1 at B 1 on the lead card); the two-level answers equal the flat mesh's,
+            the BM25 lane the unsharded reopen's (scores within rtol 1e-6, ids but for
+            near-tie swaps), and a CPU orchestrator of the same config over the same
+            file (its BM25 lane on K8's plain twin): BM25 lanes equal, vector lanes by
+            exact score, the fused top-10 at ORCH_FUSED_FLOOR; then
+            make_vector_engine("sharded", mesh=...) over the store's vectors on 4
+            shards (what `sharded_lanes` builds for a fresh store): its snapshot adds
+            no more to a card than that card's shards, its answers agree with one
+            shard's (scores within rtol 1e-6, ids but for near-ties), its `sharded`
+            segment loads on the 2 x 2 mesh and answers bit for bit as it, an added row
+            is a new generation the next search finds; B 1 search p50 on 4 shards and
+            on one
 
 Each serving phase sets the launch counts to 0 just before it runs and reads them just
 after; every kernel of its path must have launched. Each profiled window also prints its
@@ -270,8 +308,9 @@ def short_kernel_name(key: str) -> str:
 
 
 def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> dict:
-    """Run fn() `iters` times under torch.profiler and print the device's busy share of
-    the window (device time of all kernels / wall time), the device time by kernel, and
+    """Run fn() `iters` times under torch.profiler and print the devices' busy share of
+    the window (device time of all kernels / wall time, over the cards that ran one),
+    the device time by kernel, and
     each port kernel's recorded device events against its launch count in the window;
     where the two differ, also the window's device timeline. The profiler records no
     device event from the first few ms of its trace, so one untimed call of fn() runs
@@ -303,8 +342,10 @@ def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> dict:
     launched = {kid: n - before[kid] for kid, n in launch_counts().items() if n > before[kid]}
     events = prof.events()
     start = min(e.time_range.start for e in events if e.name == mark)
-    timeline = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in events
-                      if e.device_type == DeviceType.CUDA and e.time_range.start >= start and e.name != mark)
+    cuda = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.time_range.start >= start and e.name != mark]
+    timeline = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in cuda)
+    cards = max(1, min(len({e.device_index for e in cuda}), torch.cuda.device_count()))
     if not timeline:
         log(phase, f"profile: no device time recorded over {wall_ms:.3f} ms of wall time (not measured)")
         return {"launched": launched, "recorded": None, "events": None, "busy": None}
@@ -314,8 +355,9 @@ def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> dict:
         by_name[name] = (ms + dur / 1e3, n + 1)
     rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(phase, f"profile over {iters} calls: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}%); device ms by kernel: "
+    share = busy / (wall_ms * cards)
+    log(phase, f"profile over {iters} calls: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms on {cards} card(s) "
+        f"({100 * share:.1f}%, idle {100 - 100 * share:.1f}%); device ms by kernel: "
         + "; ".join(f"{short_kernel_name(k)} {ms:.3f} ({n}x)" for ms, n, k in rows[:top]))
     recorded = {kid: sum(1 for *_, name in timeline if short_kernel_name(name) == kid) for kid in launched}
     log(phase, "profile: port kernels recorded/launched in the window: "
@@ -323,7 +365,7 @@ def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> dict:
     if recorded != launched:
         log(phase, "profile: device timeline (start us, duration us, kernel): "
             + "; ".join(f"{t - start:.1f} {d:.1f} {short_kernel_name(name)}" for t, d, name in timeline))
-    return {"launched": launched, "recorded": recorded, "events": len(timeline), "busy": busy / wall_ms}
+    return {"launched": launched, "recorded": recorded, "events": len(timeline), "busy": share}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1033,13 +1075,18 @@ def _k7_case(phase, what, q, probes, counts, emb3, k, block: int, exact: bool = 
 
 
 def _cpu_copy(obj):
-    """A copy of a snapshot dataclass with every tensor field on the CPU."""
+    """A copy of a snapshot dataclass with every tensor field (or per-shard tuple of
+    tensors) on the CPU."""
     import dataclasses
 
     import torch
 
-    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
-                                       if torch.is_tensor(getattr(obj, f.name))})
+    def cpu(v):  # a tensor, or a tuple of per-shard tensors
+        return tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu()
+
+    return dataclasses.replace(obj, **{f.name: cpu(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                                       if torch.is_tensor(getattr(obj, f.name)) or isinstance(getattr(obj, f.name),
+                                                                                            tuple)})
 
 
 def serve_engine_batch(engine, texts, qv, mode, timings=None):
@@ -1092,8 +1139,43 @@ def first_call_args(module, name: str, seen: dict):
         setattr(module, name, fn)
 
 
-def engine_1m_phase(dev, seed: int, results: dict) -> dict:
-    """Path (a): the engine at 1,048,576 documents; returns this phase's launches."""
+def build_engine_1m_lex(out_dir: str, seed: int) -> None:
+    """[engine_1m]'s BM25 builder: make_corpus(seed + 1)'s 1,048,576 documents added one
+    by one with the budget "auto" (what `HybridSearchEngine.index_text` does),
+    serialized (`serialize_lex`) into `out_dir` beside the corpus's queries; prints
+    its seconds. `start_engine_1m_lex` runs it in a process of its own."""
+    from wax_tpu_torch.index.lex import LexIndexBuilder
+    from wax_tpu_torch.orchestrator.serialization import serialize_lex
+
+    t0 = time.perf_counter()
+    _, docs, queries = make_corpus(seed + 1, N_1M)
+    t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lex = LexIndexBuilder(postings_budget="auto")
+    for fid, text in enumerate(docs):
+        lex.add(fid, text)
+    t_lex = time.perf_counter() - t0
+    blob, attrs = serialize_lex(lex)
+    out = Path(out_dir)
+    (out / "lex.bin").write_bytes(blob)
+    (out / "meta.json").write_text(json.dumps({"attrs": attrs, "queries": queries}))
+    print(json.dumps({"corpus_s": t_corpus, "lex_s": t_lex, "bytes": len(blob)}), flush=True)
+
+
+def start_engine_1m_lex(tmp: Path, seed: int):
+    """Build [engine_1m]'s BM25 builder in a process of its own (`build_engine_1m_lex`),
+    on the host beside the phases before it. Returns (directory, process)."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.build_engine_1m_lex(sys.argv[2], int(sys.argv[3]))")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(REPO), str(tmp), str(seed)], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return tmp, proc
+
+
+def engine_1m_phase(dev, seed: int, results: dict, lex_job=None) -> dict:
+    """Path (a): the engine at 1,048,576 documents; returns this phase's launches.
+    `lex_job` (from `start_engine_1m_lex`) supplies its BM25 builder, built beside the
+    earlier phases; without one the phase builds it here."""
     import dataclasses
 
     import numpy as np
@@ -1107,20 +1189,31 @@ def engine_1m_phase(dev, seed: int, results: dict) -> dict:
     from wax_tpu_torch.parallel.sharded_hybrid import sharded_bm25_topk
     from wax_tpu_torch.search.engine import HybridSearchEngine
 
+    from wax_tpu_torch.orchestrator.serialization import deserialize_lex
+
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, docs, queries = make_corpus(seed + 1, N_1M)
-    t_corpus = time.perf_counter() - t0
     engine = HybridSearchEngine(None, dim=384, device=dev, lex_postings_budget="auto")
+    if lex_job is None:
+        lex_job = start_engine_1m_lex(Path(tempfile.mkdtemp(prefix="wax-engine-1m-")), seed)
+    out_dir, proc = lex_job
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=900)
+    t_wait = time.perf_counter() - t0
+    check(proc.returncode == 0, f"engine_1m: the BM25 builder's process exited {proc.returncode}: "
+          f"{err.strip().splitlines()[-5:]}")
+    built = json.loads(out.strip().splitlines()[-1])
+    meta = json.loads((out_dir / "meta.json").read_text())
+    queries = meta["queries"]
+    t0 = time.perf_counter()
+    engine.lex = deserialize_lex((out_dir / "lex.bin").read_bytes(), meta["attrs"])
+    engine.lex.postings_budget = "auto"  # runtime config, as the orchestrator re-applies it
+    t_load = time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t_corpus, t_lex = built["corpus_s"], built["lex_s"]
     # the same builders behind a second engine whose BM25 lane is the sharded program
     engine_sh = HybridSearchEngine(None, dim=384, device=dev, lex_sharded=True, lex_postings_budget="auto")
     engine_sh.lex, engine_sh.vector = engine.lex, engine.vector
-    t0 = time.perf_counter()
-    for fid, text in enumerate(docs):
-        engine.index_text(fid, text)
-    t_lex = time.perf_counter() - t0
-    del docs
     t0 = time.perf_counter()
     g = torch.Generator().manual_seed(seed + 2)
     for i in range(0, N_1M, 131_072):
@@ -1138,8 +1231,9 @@ def engine_1m_phase(dev, seed: int, results: dict) -> dict:
     check(snap.capacity == N_1M and snap.emb.dtype == torch.bfloat16 and snap.contiguous,
           f"dense snapshot {snap.capacity} rows {snap.emb.dtype}: auto would not pick chunkmax")
     check(lex.fwd_fused is not None and lex_sh.pk_chunks is not None, "the auto budget did not truncate a term")
-    log("engine_1m", f"{N_1M} docs: host seconds corpus={t_corpus:.2f} lex={t_lex:.2f} vectors={t_vec:.2f} "
-        f"snapshots={t_snap:.2f} sharded snapshot={t_snap_sh:.2f}; budget="
+    log("engine_1m", f"{N_1M} docs: host seconds corpus={t_corpus:.2f} lex={t_lex:.2f} (both in a process of its own "
+        f"beside the earlier phases; {t_wait:.2f} s waited for it here, its {built['bytes']} bytes loaded in "
+        f"{t_load:.2f} s) vectors={t_vec:.2f} snapshots={t_snap:.2f} sharded snapshot={t_snap_sh:.2f}; budget="
         f"{engine.lex.resolve_postings_budget(N_1M)} terms={lex.n_terms} postings kept={lex.n_postings} "
         f"max_df={lex.max_df} fwd_width={lex.fwd_width} impact chunks={lex.pk_chunks.shape[0] // 1024} "
         f"qb={lex.pk_qb}; dense capacity={snap.capacity} dtype={snap.emb.dtype}")
@@ -1257,22 +1351,17 @@ def engine_1m_phase(dev, seed: int, results: dict) -> dict:
 # ---------------------------------------------------------------------------- hybrid_1m
 
 
-def synth_sharded_lex(n: int, n_terms: int, budget: int, dev, seed: int = 5, per_doc: int = 64):
-    """The bench's synthetic Zipf (s = 0.7) postings as a one-shard ShardedLexIndex:
-    per-term row-sorted slices, df clamped at `budget` (impact-budget semantics),
-    doc_len == avgdl == 64, the forward index and the impact chunks. Same draws as
-    bench.py `_synth_sharded_lex`, without the TPU's padding and reversed copies."""
+def synth_lex_arrays(n: int, n_terms: int, budget: int, seed: int = 5, per_doc: int = 64) -> dict:
+    """The bench's synthetic Zipf (s = 0.7) postings as numpy arrays: per-term
+    row-sorted slices, df clamped at `budget` (impact-budget semantics), doc_len ==
+    avgdl == 64, and the forward index (`sharded_hybrid.shard_lex_arrays`' keywords).
+    Same draws as bench.py `_synth_sharded_lex`."""
     import numpy as np
-    import torch
-
-    from wax_tpu_torch.index.lex import build_impact_chunks, fuse_forward
-    from wax_tpu_torch.parallel.sharded_hybrid import ShardedLexIndex
 
     rng = np.random.default_rng(seed)
     raw_df = (1.0 / np.arange(1, n_terms + 1)) ** 0.7
     df_natural = np.minimum((raw_df / raw_df.sum() * per_doc * n).astype(np.int64) + 1, n)
     df = np.minimum(df_natural, budget)
-    max_df = int(((df.max() + 127) // 128) * 128)
     offsets = np.zeros(n_terms + 1, np.int64)
     offsets[1:] = np.cumsum(df)
     total = int(offsets[-1])
@@ -1300,20 +1389,37 @@ def synth_sharded_lex(n: int, n_terms: int, budget: int, dev, seed: int = 5, per
     fw = np.zeros((n, l_pad), np.float32)
     ft[sr, pos] = tid_all[order]
     fw[sr, pos] = wnorm[order]
-    fwd_width = int(widths.max())
-    fz = fuse_forward(ft, fw, fwd_width)
-    pk, cb, cc, qb = build_impact_chunks(doc_rows, wnorm, offsets, idf.astype(np.float64), n)
+    return dict(doc_rows=doc_rows, tfs=tfs, offsets=offsets, idf=idf, doc_len_g=np.full(n, 64.0, np.float32),
+                frame_ids_g=np.arange(n, dtype=np.int32), active_g=np.ones(n, bool), count=n, avgdl_f=64.0,
+                fwd_tids=ft, fwd_wnorm=fw, fwd_width=int(widths.max()), wnorm=wnorm)
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)[None]).to(dev)
+
+def synth_sharded_lex(arrays: dict, dev):
+    """`synth_lex_arrays`' postings as a one-shard ShardedLexIndex with the bench's
+    weights, the fused forward index and the impact chunks, without the TPU's padding
+    and reversed copies."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.index.lex import build_impact_chunks, fuse_forward
+    from wax_tpu_torch.parallel.sharded_hybrid import ShardedLexIndex
+
+    a = arrays
+    n, offsets, idf, wnorm = a["count"], a["offsets"], a["idf"], a["wnorm"]
+    max_df = int(((np.diff(offsets).max() + 127) // 128) * 128)
+    fz = fuse_forward(a["fwd_tids"], a["fwd_wnorm"], a["fwd_width"])
+    pk, cb, cc, qb = build_impact_chunks(a["doc_rows"], wnorm, offsets, idf.astype(np.float64), n)
+
+    def put(x):  # one shard's array
+        return (torch.from_numpy(np.ascontiguousarray(x)).to(dev),)
 
     return ShardedLexIndex(
-        doc_rows=put(doc_rows), tfs=put(tfs), offsets=put(offsets.astype(np.int32)), idf=put(idf),
-        doc_len=put(np.full(n, 64.0, np.float32)), frame_ids=put(np.arange(n, dtype=np.int32)),
-        live=put(np.ones(n, bool)), row_base=torch.zeros(1, dtype=torch.int32, device=dev),
-        avgdl=torch.tensor(64.0, device=dev), wnorm=put(wnorm), fwd_tids=put(ft), fwd_wnorm=put(fw),
-        fwd_fused=put(fz), pk_chunks=put(pk), chunk_base=put(cb), chunk_counts=put(cc), max_df=max_df,
-        pk_qb=qb, pk_max_chunks=int(cc.max()), fwd_width=fwd_width,
+        doc_rows=put(a["doc_rows"]), tfs=put(a["tfs"]), offsets=put(offsets.astype(np.int32)), idf=put(idf),
+        doc_len=put(a["doc_len_g"]), frame_ids=put(a["frame_ids_g"]), live=put(a["active_g"]),
+        row_base=(torch.zeros((), dtype=torch.int32, device=dev),), avgdl=torch.tensor(64.0, device=dev),
+        wnorm=put(wnorm), fwd_tids=put(a["fwd_tids"]), fwd_wnorm=put(a["fwd_wnorm"]), fwd_fused=put(fz),
+        pk_chunks=put(pk), chunk_base=put(cb), chunk_counts=put(cc), max_df=max_df, pk_qb=qb,
+        pk_max_chunks=int(cc.max()), fwd_width=a["fwd_width"],
     )
 
 
@@ -1460,9 +1566,10 @@ def _k3_k5_cases(phase, fused, ft, fw, cand, tids_q, idf_q, fwd_width: int) -> d
     return out
 
 
-def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) -> dict:
+def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20, keep: dict | None = None) -> dict:
     """Path (b): the fused one-device program at the bench's hybrid_1m_x384 shape;
-    returns this phase's launches."""
+    returns this phase's launches. `keep` (a dict) receives the rows, the queries, the
+    term ids and the postings' arrays for [hybrid_1m_sharded]."""
     import numpy as np
     import torch
 
@@ -1478,15 +1585,16 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) 
     emb = normalize_rows(torch.randn((N_1M, d), generator=g, device=dev)).to(torch.bfloat16)
     q0 = normalize_rows(torch.randn((b, d), generator=g, device=dev))
     t0 = time.perf_counter()
-    lex = synth_sharded_lex(N_1M, n_terms, budget, dev)
+    arrays = synth_lex_arrays(N_1M, n_terms, budget)
+    lex = synth_sharded_lex(arrays, dev)
     t_lex = time.perf_counter() - t0
-    dense = ShardedDenseIndex(emb=emb, frame_ids=torch.arange(N_1M, dtype=torch.int32, device=dev),
-                              bias=torch.zeros(N_1M, device=dev), contiguous=True)
+    dense = ShardedDenseIndex(emb=(emb,), frame_ids=(torch.arange(N_1M, dtype=torch.int32, device=dev),),
+                              bias=(torch.zeros(N_1M, device=dev),), contiguous=True)
     tids0 = torch.from_numpy(np.random.default_rng(7).integers(0, n_terms, (b, q_terms)).astype(np.int32)).to(dev)
     mesh = data_mesh(dev)
-    log("hybrid_1m", f"{N_1M} rows x {d} bf16; synthetic postings built in {t_lex:.2f} s: {lex.doc_rows.shape[1]} "
+    log("hybrid_1m", f"{N_1M} rows x {d} bf16; synthetic postings built in {t_lex:.2f} s: {lex.doc_rows[0].shape[0]} "
         f"postings, {n_terms} terms, budget {budget}, max_df={lex.max_df}, fwd_width={lex.fwd_width}, "
-        f"impact chunks={lex.pk_chunks.shape[1] // 1024}, qb={lex.pk_qb}")
+        f"impact chunks={lex.pk_chunks[0].shape[0] // 1024}, qb={lex.pk_qb}")
     fv0, ff0 = sh.sharded_hybrid_topk(q0, tids0, dense, lex, k, mesh)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1508,9 +1616,9 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) 
         t2 = (tids0 + i) % n_terms
         e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         e[0].record()
-        sh._dense_lane(q0, dense, 20, True, False)
+        sh._dense_lane(q0, dense.emb[0], dense.bias[0], 20, True, False)
         e[1].record()
-        sh._bm25_lane(t2, lex, 20, "any", "candidates_pallas")
+        sh._bm25_lane(t2, lex, 0, 20, "any", "candidates_pallas")
         e[2].record()
         e[2].synchronize()
         lane["dense"].append(e[0].elapsed_time(e[1]))
@@ -1533,10 +1641,10 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) 
     dense_cpu, lex_cpu = _cpu_copy(dense), _cpu_copy(lex)
     cv, cf = sh.sharded_hybrid_topk(q0[:nq].cpu(), tids0[:nq].cpu(), dense_cpu, lex_cpu, k, data_mesh("cpu"),
                                     lex_backend="candidates_pallas")
-    gdv, gdr = sh._dense_lane(q0[:nq], dense, 20, True, False)
-    cdv, cdr = sh._dense_lane(q0[:nq].cpu(), dense_cpu, 20, True, False)
-    gbv, gbf = sh._bm25_lane(tids0[:nq], lex, 20, "any", "candidates_pallas")
-    cbv, cbf = sh._bm25_lane(tids0[:nq].cpu(), lex_cpu, 20, "any", "candidates_pallas")
+    gdv, gdr = sh._dense_lane(q0[:nq], dense.emb[0], dense.bias[0], 20, True, False)
+    cdv, cdr = sh._dense_lane(q0[:nq].cpu(), dense_cpu.emb[0], dense_cpu.bias[0], 20, True, False)
+    gbv, gbf = sh._bm25_lane(tids0[:nq], lex, 0, 20, "any", "candidates_pallas")
+    cbv, cbf = sh._bm25_lane(tids0[:nq].cpu(), lex_cpu, 0, 20, "any", "candidates_pallas")
     check(torch.equal(gbf.cpu(), cbf) and torch.allclose(gbv.cpu(), cbv, rtol=1e-6, atol=0.0),
           "hybrid_1m: BM25 lane (K4+K3) differs from the plain path")
     derr = float((gdv.cpu() - cdv).abs().max())
@@ -1548,6 +1656,8 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20) 
     check(bool(torch.isfinite(fv).all()) and bool((ff[:, 0] >= 0).all()), "hybrid_1m: malformed fused output")
     log("hybrid_1m", f"checks: fused ids equal to the plain program on a CPU copy for {sum(same)}/{nq} queries; "
         f"BM25 lane ids equal (scores rtol 1e-6); dense lane max_abs_err={derr:.3g}")
+    if keep is not None:
+        keep.update(emb=emb, q0=q0, tids0=tids0, arrays=arrays, n_terms=n_terms, fused=(fv0, ff0))
     log("hybrid_1m", f"phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
 
@@ -1699,7 +1809,7 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     mesh = data_mesh(dev)
     dense = shard_dense_index(snap, mesh)
     q0, tids0 = served[0][5], torch.from_numpy(served[0][4]).to(dev)
-    n_terms, k, iters = int(lex.idf.shape[1]), 10, 20
+    n_terms, k, iters = int(lex.idf[0].shape[0]), 10, 20
 
     def perturbed(i):
         return torch.where(tids0 >= 0, (tids0 + i) % n_terms, -1)
@@ -1726,8 +1836,9 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     cv, cf = sh.sharded_hybrid_topk(q0[:nq].cpu(), tids0[:nq].cpu(), _cpu_copy(dense), lex_cpu, k, cpu_mesh,
                                     lex_backend="candidates_pallas")
     same = [torch.equal(ff0[i].cpu(), cf[i]) for i in range(nq)]
-    _, gdr = sh._dense_lane(q0[:nq], dense, 20, False, False)
-    _, cdr = sh._dense_lane(q0[:nq].cpu(), _cpu_copy(dense), 20, False, False)
+    _, gdr = sh._dense_lane(q0[:nq], dense.emb[0], dense.bias[0], 20, False, False)
+    dense_cpu = _cpu_copy(dense)
+    _, cdr = sh._dense_lane(q0[:nq].cpu(), dense_cpu.emb[0], dense_cpu.bias[0], 20, False, False)
     for i in range(nq):  # a fused list may differ only through a near-tie of the dense lane
         check(same[i] or not torch.equal(gdr[i].cpu(), cdr[i]), f"exact_30k: query {i} fused ids differ")
     check(sum(same) / nq >= 0.9, f"exact_30k: fused ids equal to the plain program for only {sum(same)}/{nq} queries")
@@ -1774,11 +1885,12 @@ class _RowScores:
         return float(self.q[b] @ self.rows[row].float())
 
 
-def ivf_1m_phase(dev, seed: int, results: dict) -> dict:
+def ivf_1m_phase(dev, seed: int, results: dict, keep: dict | None = None) -> dict:
     """Path (d): the bench's ivf_1m_x768_nprobe8 shape: build_ivf (4,096 clusters,
     S 384 bf16 buckets, spill "auto") over 1,048,576 x 768 clustered rows and 256
     queries through ivf_search_topk_pallas (K7), against the exact chunkmax lane (K6 +
-    K7). Returns this phase's launches."""
+    K7). Returns this phase's launches; `keep` (a dict) receives the index, the queries
+    and their exact top-10 for [shard_10m]'s sharded IVF."""
     import numpy as np
     import torch
 
@@ -1855,6 +1967,8 @@ def ivf_1m_phase(dev, seed: int, results: dict) -> dict:
     log("ivf_1m", f"ivf_search_topk_pallas B {N_QUERIES} k {k} nprobe {nprobe}: {ms:.4f} ms a call (CUDA events, 20 "
         f"calls) = {1e3 / ms:.1f} calls/s = {N_QUERIES * 1e3 / ms:.1f} queries/s; plain probe loop {plain:.4f} ms")
     device_profile("ivf_1m search", lambda: ivf_search_topk_pallas(q, index, k=k, nprobe=nprobe))
+    if keep is not None:
+        keep.update(index=index, q=q, exact=exact)
     log("ivf_1m", f"phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
 
@@ -1971,8 +2085,315 @@ def auto_2m_phase(dev, seed: int, results: dict) -> dict:
 
 # ------------------------------------------------------------------------ orch_100k
 
+# ------------------------------------------------------------- shard_10m, hybrid_1m_sharded
+
+N_10M = 10_485_760  # BASELINE.md's scale configuration: 10M x 768 sharded, distributed flat scan
+N_SHARDS = 4
+N_EXACT_SLAB = 1_048_576  # [shard_10m]'s exact-arithmetic slab (1/8-grid entries)
+SHARD_ROW_CHUNK = 1 << 20
+
+
+def mesh_devices(dev, n: int = N_SHARDS):
+    """(devices of an n-shard mesh, what ran): n distinct cards when the machine has
+    them, else n logical shards on `dev`."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], f"{n} distinct cards"
+    return [dev] * n, f"{n} logical shards on {dev} (one card)"
+
+
+def unit_rows(n: int, d: int, seed: int, device):
+    """n seeded unit rows in bf16, drawn on `device` SHARD_ROW_CHUNK rows at a time
+    (chunk c from its own generator), so no f32 temporary holds more than a chunk."""
+    import torch
+
+    from wax_tpu_torch.ops.flat_scan import normalize_rows
+
+    out = torch.empty((n, d), dtype=torch.bfloat16, device=device)
+    for lo in range(0, n, SHARD_ROW_CHUNK):
+        hi = min(n, lo + SHARD_ROW_CHUNK)
+        g = torch.Generator(device=device).manual_seed(seed * 1_000_003 + lo // SHARD_ROW_CHUNK)
+        out[lo:hi] = normalize_rows(torch.randn((hi - lo, d), generator=g, device=device)).to(torch.bfloat16)
+    return out
+
+
+def dense_over(blocks):
+    """A ShardedDenseIndex of all-live rows: `blocks`, equal row blocks of one corpus
+    (frame id = row), one per corpus shard on the shard's device."""
+    import torch
+
+    from wax_tpu_torch.parallel.sharded_scan import ShardedDenseIndex
+
+    fids = tuple(torch.arange(i * e.shape[0], (i + 1) * e.shape[0], dtype=torch.int32, device=e.device)
+                 for i, e in enumerate(blocks))
+    bias = tuple(torch.zeros(e.shape[0], device=e.device) for e in blocks)
+    return ShardedDenseIndex(emb=tuple(blocks), frame_ids=fids, bias=bias, contiguous=True)
+
+
+def sync_calls(fn) -> tuple[int, list]:
+    """(synchronising CUDA calls a warm fn() made, their first messages) under
+    torch.cuda.set_sync_debug_mode("warn"); one untimed call runs first, so that the
+    caching allocator holds the call's blocks."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    msgs = [str(w.message) for w in seen if "called a synchronizing" in str(w.message)]
+    return len(msgs), [m[:160] for m in msgs[:3]]
+
+
+def _near_tie_agree(phase, what, v, f, rv, rf, rtol: float = 1e-6) -> int:
+    """(vals, ids) [B, k] against a reference: scores within rtol place by place, and
+    ids equal except near-ties: an id in one list only has its list's score within
+    rtol of the reference's k-th score. Returns the queries whose ids differ."""
+    import numpy as np
+
+    v, f, rv, rf = (np.asarray(x) for x in (v, f, rv, rf))
+    check(np.allclose(v, rv, rtol=rtol, atol=0.0), f"{phase}: {what}: scores beyond rtol {rtol} "
+          f"(max gap {np.abs(v - rv).max():.3g})")
+    differ = 0
+    for i in range(f.shape[0]):
+        if np.array_equal(f[i], rf[i]):
+            continue
+        differ += 1
+        kth = abs(rv[i, -1])
+        for j in range(f.shape[1]):
+            if f[i, j] != rf[i, j]:  # a swap: both places hold near-equal scores
+                check(abs(v[i, j] - rv[i, j]) <= rtol * max(abs(rv[i, j]), 1e-30),
+                      f"{phase}: {what}: query {i} place {j} differs beyond a near-tie")
+        for j in np.nonzero(~np.isin(f[i], rf[i]))[0]:
+            check(abs(abs(v[i, j]) - kth) <= rtol * kth, f"{phase}: {what}: query {i} lists id {f[i, j]} that the "
+                  f"reference does not, at score {v[i, j]!r} against its k-th {rv[i, -1]!r}")
+    return differ
+
+
+def shard_10m_phase(dev, seed: int, ivf: dict) -> dict:
+    """[shard_10m]: BASELINE.md's scale configuration, 10,485,760 x 768 unit rows in
+    bf16 (16.1 GB) split over 4 corpus shards: `sharded_flat_scan_topk` at B 256, k 10
+    on the flat 4-shard mesh and the 2 x 2 two-level mesh (bit-equal), against a
+    one-shard scan of the same rows (64 queries), bit for bit on a 1/8-grid slab; the
+    synchronising calls of one call at S 1, 2 and 4; then `sharded_ivf_search_topk`
+    over [ivf_1m]'s index (`ivf`: index, queries, exact top-10) on 4 slot shards.
+    Plain torch throughout: the JAX module has no Pallas kernel here."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.index.ivf import ivf_search_topk
+    from wax_tpu_torch.ops.flat_scan import _scores_f32, normalize_rows
+    from wax_tpu_torch.ops.topk import blockmax_topk
+    from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
+    from wax_tpu_torch.parallel.mesh import data_mesh, make_two_level_mesh, shard_rows
+    from wax_tpu_torch.parallel.sharded_ivf import shard_ivf_index, sharded_ivf_search_topk
+    from wax_tpu_torch.parallel.sharded_scan import sharded_flat_scan_topk
+    from wax_tpu_torch.search.vector_engines import AutoVectorEngine
+
+    phase = "shard_10m"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    d, b, k = 768, N_QUERIES, 10
+    devs, how = mesh_devices(dev)
+    per = N_10M // N_SHARDS
+    mesh4, mesh22 = data_mesh(devs), make_two_level_mesh(2, devices=devs)
+    mesh2, mesh1 = data_mesh(devs[:2]), data_mesh(dev)
+    t0 = time.perf_counter()
+    full = unit_rows(N_10M, d, seed, dev)  # also the one-shard reference's rows
+    # each mesh's blocks: views of `full` on its card, copies on the others
+    idx4, idx2, idx1 = (dense_over(shard_rows(m, full)) for m in (mesh4, mesh2, mesh1))
+    for x in devs:
+        torch.cuda.synchronize(x)
+    t_data = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(seed + 101)
+    q = normalize_rows(torch.randn((b, d), generator=g, device=dev))
+    log(phase, f"{how}: {N_10M} x {d} bf16 unit rows ({N_10M * d * 2 / 1e9:.2f} GB) drawn on the card(s) in "
+        f"{t_data:.2f} s; {N_SHARDS} shards of {per} rows; mesh {mesh4.axis_names} {mesh4.axis_sizes} and "
+        f"{mesh22.axis_names} {mesh22.axis_sizes}")
+
+    # 1. the flat mesh and the two-level mesh, bit for bit
+    v4, f4 = sharded_flat_scan_topk(q, idx4, k, mesh4)
+    v22, f22 = sharded_flat_scan_topk(q, idx4, k, mesh22)
+    check(torch.equal(v4, v22) and torch.equal(f4, f22), f"{phase}: the 2 x 2 mesh differs from the flat 4-shard mesh")
+    check(tuple(f4.shape) == (b, k) and bool(torch.isfinite(v4).all()) and bool((f4 >= 0).all()),
+          f"{phase}: malformed output")
+    # 2. against one shard of the same rows, 64 queries
+    v1, f1 = sharded_flat_scan_topk(q[:64], idx1, k, mesh1)
+    differ = _near_tie_agree(phase, "4 shards vs one shard", v4[:64].cpu(), f4[:64].cpu(), v1.cpu(), f1.cpu())
+    # 3. exact arithmetic: a 1/8-grid slab, every mesh bit for bit
+    ge = torch.Generator(device=dev).manual_seed(seed + 103)
+    slab = (torch.randint(-8, 9, (N_EXACT_SLAB, d), generator=ge, device=dev) / 8.0).to(torch.bfloat16)
+    qe = torch.randint(-8, 9, (64, d), generator=ge, device=dev) / 8.0
+    ex4 = dense_over(shard_rows(mesh4, slab))
+    e1 = sharded_flat_scan_topk(qe, dense_over((slab,)), k, mesh1)
+    e4 = sharded_flat_scan_topk(qe, ex4, k, mesh4)
+    e22 = sharded_flat_scan_topk(qe, ex4, k, mesh22)
+    check(all(torch.equal(a, c) for a, c in zip(e1, e4)) and all(torch.equal(a, c) for a, c in zip(e1, e22)),
+          f"{phase}: the 1/8-grid slab's answers differ between one shard, 4 shards and 2 x 2")
+    want = (qe[:4].double() @ slab.double().t()).topk(k, dim=1).values.float()
+    check(torch.equal(e4[0][:4], want.to(e4[0].device)), f"{phase}: the 1/8-grid scores are not the float64 products")
+    del want
+    del slab, ex4
+    log(phase, f"checks: 2 x 2 equals the flat 4-shard mesh bit for bit (B {b}); 4 shards against one shard on 64 "
+        f"queries: scores within rtol 1e-6, ids equal on {64 - differ} (the rest near-ties of the k-th score); "
+        f"a {N_EXACT_SLAB} x {d} 1/8-grid slab: one shard, 4 shards and 2 x 2 bit-equal, scores = float64 products")
+
+    # 4. times: a batch (median of 10), each shard's device work and the merge
+    ms4 = median_call_ms(lambda: sharded_flat_scan_topk(q, idx4, k, mesh4), iters=10, warmup=1)
+    ms22 = median_call_ms(lambda: sharded_flat_scan_topk(q, idx4, k, mesh22), iters=10, warmup=1)
+    ms1 = median_call_ms(lambda: sharded_flat_scan_topk(q, idx1, k, mesh1), iters=10, warmup=1)
+    shard_ms, lists = [], ([], [])
+    for s_ in range(N_SHARDS):
+        e, fi, bi = idx4.shard(s_)
+        with torch.cuda.device(e.device):
+            qs = q.to(e.device)
+            shard_ms.append(median_call_ms(lambda: blockmax_topk(_scores_f32(qs.to(e.dtype), e, bi), k), iters=5,
+                                           warmup=1))
+            vv, rr = blockmax_topk(_scores_f32(qs.to(e.dtype), e, bi), k)
+        lists[0].append(vv)
+        lists[1].append(fi[rr.long()])
+    merge_ms = median_call_ms(lambda: merge_topk_across_mesh(lists[0], lists[1], k, mesh4), iters=20)
+    nbytes = N_10M * d * 2 + N_10M * 4 + b * d * 4 + b * k * 8
+    bms, bby = bound(nbytes, 2.0 * b * N_10M * d, "bf16")
+    prof = device_profile(phase, lambda: sharded_flat_scan_topk(q, idx4, k, mesh4), iters=3)
+    busy = "not measured" if prof["busy"] is None else f"{100 * prof['busy']:.1f}%"
+    log(phase, f"sharded_flat_scan_topk B {b} k {k}: 4 shards {ms4:.3f} ms a batch (median of 10, CUDA events on "
+        f"{dev}), 2 x 2 {ms22:.3f} ms, one shard {ms1:.3f} ms = {b * 1e3 / ms4:.1f} queries/s on 4 shards; per "
+        f"shard (scores + blockmax top-k, median of 5) " + ", ".join(f"{t:.3f}" for t in shard_ms)
+        + f" ms; the merge {merge_ms:.4f} ms; bound {bms:.4f} ms ({bby}); busy {busy}")
+    # 5. synchronising calls of one call, at 1, 2 and 4 shards
+    syncs = {1: sync_calls(lambda: sharded_flat_scan_topk(q, idx1, k, mesh1)),
+             2: sync_calls(lambda: sharded_flat_scan_topk(q, idx2, k, mesh2)),
+             4: sync_calls(lambda: sharded_flat_scan_topk(q, idx4, k, mesh4))}
+    check(syncs[2][0] <= syncs[1][0] and syncs[4][0] <= syncs[1][0],
+          f"{phase}: synchronising calls grow with the shards: {syncs}")
+    log(phase, f"synchronising calls of one sharded_flat_scan_topk (set_sync_debug_mode warn): S 1 {syncs[1][0]}, "
+        f"S 2 {syncs[2][0]}, S 4 {syncs[4][0]} {[m for _, ms in syncs.values() for m in ms] or ''}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del full, idx4, idx2, idx1, lists
+    torch.cuda.empty_cache()
+
+    # 6. sharded IVF over [ivf_1m]'s index, 4 slot shards
+    index, qi, exact = ivf["index"], ivf["q"], ivf["exact"]
+    t0 = time.perf_counter()
+    sivf = shard_ivf_index(index, mesh4)
+    for x in devs:
+        torch.cuda.synchronize(x)
+    t_shard = time.perf_counter() - t0
+    pv, pf = ivf_search_topk(qi, index, k=k, nprobe=8)
+    sv, sf = sharded_ivf_search_topk(qi, sivf, k, mesh4, nprobe=8)
+    tv, tf = sharded_ivf_search_topk(qi, sivf, k, mesh22, nprobe=8)
+    check(torch.allclose(sv.cpu(), pv.cpu(), rtol=1e-6, atol=0.0),
+          f"{phase}: sharded IVF scores differ from the one-device probe loop beyond rtol 1e-6 "
+          f"(max gap {float((sv.cpu() - pv.cpu()).abs().max()):.3g})")
+    check(torch.equal(sv, tv) and torch.equal(sf, tf), f"{phase}: sharded IVF on 2 x 2 differs from 4 shards")
+    ids_eq = float((sf.cpu() == pf.cpu()).float().mean())
+    rec = AutoVectorEngine._recall(exact.cpu().numpy(), sf.cpu().numpy())
+    ivf_ms = median_call_ms(lambda: sharded_ivf_search_topk(qi, sivf, k, mesh4, nprobe=8), iters=10)
+    one_ms = median_call_ms(lambda: ivf_search_topk(qi, index, k=k, nprobe=8), iters=10)
+    log(phase, f"sharded IVF over [ivf_1m]'s index ({index.n_clusters} clusters of S {index.bucket_size}, spilled="
+        f"{index.spilled}; slot shards of {sivf.local_slots}, laid out in {t_shard:.3f} s): B {qi.shape[0]} k {k} "
+        f"nprobe 8: scores equal to the one-device probe loop within rtol 1e-6, ids equal on {100 * ids_eq:.2f}% of "
+        f"places, 2 x 2 bit-equal; recall@{k} against the exact lane {rec:.4f}; {ivf_ms:.3f} ms a call (median of "
+        f"10) against the one-device probe loop's {one_ms:.3f} ms")
+    log(phase, f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return {"ms4": ms4, "syncs": {s_: c for s_, (c, _) in syncs.items()}}
+
+
+def hybrid_1m_sharded_phase(dev, kept: dict) -> dict:
+    """[hybrid_1m_sharded]: `sharded_hybrid_topk` at [hybrid_1m]'s shape (its rows,
+    queries, term ids and postings, `kept`) over 2 shards (K6 + K7, K4, K3 a shard),
+    4 shards (K1, K4, K3 a shard) and the 2 x 2 mesh (bit-equal to 4 shards); at each,
+    the fused ids against the same program on a CPU copy. Returns the launches of the
+    timed windows."""
+    import torch
+
+    from wax_tpu_torch.parallel import sharded_hybrid as sh
+    from wax_tpu_torch.parallel.mesh import data_mesh, make_two_level_mesh, shard_rows
+
+    phase = "hybrid_1m_sharded"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    emb, q0, tids0, arrays, n_terms = kept["emb"], kept["q0"], kept["tids0"], kept["arrays"], kept["n_terms"]
+    b, k, iters = q0.shape[0], 10, 20
+    nq = min(32, b)
+    total = {kid: 0 for kid in KERNEL_IDS}
+    answers = {}
+    for label, n in (("S 2", 2), ("S 4", 4), ("2 x 2", 4)):
+        devs, how = mesh_devices(dev, n)
+        mesh = make_two_level_mesh(2, devices=devs) if label == "2 x 2" else data_mesh(devs)
+        if label != "2 x 2":
+            t0 = time.perf_counter()
+            lex = sh.shard_lex_arrays(mesh, N_1M, **{a: v for a, v in arrays.items() if a != "wnorm"})
+            t_lex = time.perf_counter() - t0
+            dense = dense_over(shard_rows(mesh, emb))
+        fv0, ff0 = sh.sharded_hybrid_topk(q0, tids0, dense, lex, k, mesh)  # warm-up
+        for x in devs:
+            torch.cuda.synchronize(x)
+        reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+        ev[0].record()
+        for i in range(iters):
+            sh.sharded_hybrid_topk(q0, (tids0 + i) % n_terms, dense, lex, k, mesh)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = {"K3": n, "K4": n, "K6": n, "K7": n} if n == 2 else {"K1": n, "K3": n, "K4": n}
+        per_call = {kid: c / iters for kid, c in launches.items() if c}
+        check(per_call == {kid: float(c) for kid, c in want.items()},
+              f"{phase} {label}: launches a call {per_call}, expected {want}")
+        for kid, c in launches.items():
+            total[kid] += c
+        times = [ev[i].elapsed_time(ev[i + 1]) for i in range(iters)]
+        med = statistics.median(times)
+        prof = device_profile(f"{phase} {label}", lambda: sh.sharded_hybrid_topk(q0, tids0, dense, lex, k, mesh))
+        busy = "not measured" if prof["busy"] is None else f"{100 * prof['busy']:.1f}%"
+        answers[label] = (fv0, ff0)
+        split = "" if label == "2 x 2" else f"; postings split in {t_lex:.2f} s"
+        log(phase, f"{label} ({how}{split}, {dense.local_rows} rows a shard): per call median {med:.3f} ms over "
+            f"{iters} calls (term ids perturbed per call; min {min(times):.3f}, max {max(times):.3f}) = "
+            f"{b / (med / 1e3):.1f} queries/s; launches a call {per_call}; busy {busy}")
+        if label == "2 x 2":
+            check(torch.equal(fv0, answers["S 4"][0]) and torch.equal(ff0, answers["S 4"][1]),
+                  f"{phase}: the 2 x 2 mesh differs from 4 shards")
+            continue
+        # the fused ids against the same program on a CPU copy (32 queries); a fused
+        # list may differ only through a near-tie of some shard's dense lane
+        dense_cpu, lex_cpu, cpu_mesh = _cpu_copy(dense), _cpu_copy(lex), data_mesh(["cpu"] * n)
+        cv, cf = sh.sharded_hybrid_topk(q0[:nq].cpu(), tids0[:nq].cpu(), dense_cpu, lex_cpu, k, cpu_mesh,
+                                        lex_backend="candidates_pallas")
+        chunk = dense.local_rows >= sh._CHUNKMAX_MIN_LOCAL_ROWS
+        lane_same = torch.ones(nq, dtype=torch.bool)
+        for s_ in range(n):
+            e, _, bi = dense.shard(s_)
+            ec, _, bc = dense_cpu.shard(s_)
+            with torch.cuda.device(e.device):
+                _, gr = sh._dense_lane(q0[:nq].to(e.device), e, bi, 20, chunk, not chunk)
+            _, cr = sh._dense_lane(q0[:nq].cpu(), ec, bc, 20, chunk, not chunk)
+            lane_same &= (gr.cpu() == cr).all(dim=1)
+        same = [torch.equal(ff0[i].cpu(), cf[i]) for i in range(nq)]
+        for i in range(nq):
+            check(same[i] or not bool(lane_same[i]), f"{phase} {label}: query {i} fused ids differ")
+        check(sum(same) / nq >= 0.9, f"{phase} {label}: fused ids equal for only {sum(same)}/{nq} queries")
+        check(bool(torch.isfinite(fv0).all()) and bool((ff0[:, 0] >= 0).all()), f"{phase} {label}: malformed output")
+        log(phase, f"{label} checks: fused ids equal to the plain program on a CPU copy for {sum(same)}/{nq} "
+            f"queries (the rest through a dense-lane near-tie)")
+    log(phase, f"checks: the 2 x 2 mesh equals 4 shards bit for bit; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds {time.perf_counter() - t_phase:.1f}")
+    return total
+
+
+
 ORCH_BUDGET = 4096  # the budgeted reopen's manual lex_postings_budget
-N_ORCH_QUERIES = 128  # [orch_100k]'s searches and recalls (cut from 256 for the run's time limit)
+N_ORCH_QUERIES = 64  # [orch_100k]'s searches and recalls (cut from 256, then 128, for the run's time limit)
 # The least share of queries whose fused top-10 must equal the CPU's. Where they differ,
 # the vector lane reordered near-ties (RRF fuses ranks, so one swap there can reorder
 # the fused list): K1 ranks scores truncated to 2^-12 relative, summed in another order
@@ -2506,6 +2927,8 @@ HNSW_SCORE_TOL = 3e-5  # a listed score against its id's float64 score
 # builder and beam on 100K x 384 hard-clustered rows; recall belongs to the algorithm
 HNSW_RECALL_FLOOR = 0.95
 N_ORCH_HNSW = 10_240
+N_ORCH_HNSW_QUERIES = 64  # [orch_hnsw]'s searches
+N_GRID = 4_096  # [hnsw_100k]'s 1/8-grid graph rows
 
 
 def hard_clustered(n: int, rng, d: int = HNSW_DIM):
@@ -2693,7 +3116,7 @@ def hnsw_100k_phase(dev, seed: int, results: dict, job: dict) -> dict:
         prof = device_profile(f"{phase} ef {ef}", run, iters=1)
         sweep[ef] = {"recall": recall, "ms": ms, "kernels": prof["events"], "busy": prof["busy"], "gap": gap}
         log(phase, f"ef {ef}, B {N_QUERIES}, k {k}: recall@{k} {recall:.4f} against K2's exact top-{k}; "
-            f"{ms:.3f} ms a batch (median of 20 calls, CUDA events) = {N_QUERIES * 1e3 / ms:.1f} queries/s; "
+            f"{ms:.3f} ms a batch (median of 10 calls, CUDA events) = {N_QUERIES * 1e3 / ms:.1f} queries/s; "
             f"{prof['events']} kernels a search ({ef} steps); device busy "
             + (f"{100 * prof['busy']:.1f}%" if prof["busy"] is not None else "not measured")
             + f"; ids live and unique, scores within {gap:.3g} of float64")
@@ -2727,11 +3150,11 @@ def hnsw_100k_phase(dev, seed: int, results: dict, job: dict) -> dict:
 
     # 6. exact arithmetic: a 1/8-grid graph (numpy builder, normalize=False), card = CPU
     rng = np.random.default_rng(seed + 2)
-    grid = (rng.integers(-8, 9, (4096, 64)) / 8.0).astype(np.float32)
+    grid = (rng.integers(-8, 9, (N_GRID, 64)) / 8.0).astype(np.float32)
     gq = torch.from_numpy((rng.integers(-8, 9, (N_QUERIES, 64)) / 8.0).astype(np.float32))
     t0 = time.perf_counter()
     pb = HNSWBuilder(dim=64, m=8, ef_construction=40, normalize=False)
-    pb.add_batch(np.arange(4096), grid)
+    pb.add_batch(np.arange(N_GRID), grid)
     t_py = time.perf_counter() - t0
     g_card, g_cpu = pb.snapshot(device=dev), pb.snapshot(device="cpu")
     for ef in (16, 64):
@@ -2739,8 +3162,8 @@ def hnsw_100k_phase(dev, seed: int, results: dict, job: dict) -> dict:
         check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
               f"{phase}: the grid graph's ids or scores differ between the card and the CPU at ef {ef}")
     log(phase, f"checks: TF32 on gives the same bits at ef 64 (the setting restored); the CPU on the same graph "
-        f"(32 queries, ef 64) overlaps the card's top-{k} {overlap:.4f}, {same_rows} of 32 rows equal; the 4,096 x 64 "
-        f"grid graph (numpy builder, M 8, efConstruction 40, {t_py:.1f} s) answers bit for bit as the CPU at ef 16 "
+        f"(32 queries, ef 64) overlaps the card's top-{k} {overlap:.4f}, {same_rows} of 32 rows equal; the {N_GRID:,} x "
+        f"64 grid graph (numpy builder, M 8, efConstruction 40, {t_py:.1f} s) answers bit for bit as the CPU at ef 16 "
         f"and 64; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds "
         f"{time.perf_counter() - t_phase:.1f}")
     return {"K2": gt["K2"], "sweep": sweep, "build_s": t_build, "snapshot_s": t_snap}
@@ -2748,8 +3171,8 @@ def hnsw_100k_phase(dev, seed: int, results: dict, job: dict) -> dict:
 
 def orch_hnsw_phase(dev, seed: int, tmp: Path) -> dict:
     """The MemoryOrchestrator with OrchestratorConfig(vector_engine="hnsw") over the
-    first 10,240 smoke documents (full-width MiniLM, bf16, random weights): ingest, 64
-    searches and 16 recalls one at a time, a profiled window, the vector lane's
+    first N_ORCH_HNSW smoke documents (full-width MiniLM, bf16, random weights): ingest,
+    N_ORCH_HNSW_QUERIES searches and 16 recalls one at a time, a profiled window, the vector lane's
     recall@10 against a flat engine over the same embeddings (reported), flush, close
     and a cold reopen answering bit for bit; then a WaxSession (open_session, hnsw) over
     the same documents and their embeddings: put_batch, commit, reopen, equal
@@ -2769,7 +3192,7 @@ def orch_hnsw_phase(dev, seed: int, tmp: Path) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     _, docs, queries = make_corpus(seed)
-    docs, qs = docs[:N_ORCH_HNSW], queries[0][:64]
+    docs, qs = docs[:N_ORCH_HNSW], queries[0][:N_ORCH_HNSW_QUERIES]
     cfg = OrchestratorConfig(vector_engine="hnsw")
     orch = sess = None
     try:
@@ -3640,6 +4063,249 @@ def mcp_phase(dev, seed: int, tmp: Path, store) -> dict:
     return {"K1": launched["K1"]}
 
 
+# ------------------------------------------------------------------------ orch_sharded
+
+N_ORCH_SHARDED = 64  # [orch_sharded]'s searches and recalls on each mesh
+
+
+def _bm25_lanes_near(phase, what, qs, card, ref) -> int:
+    """BM25 lane lists [(frame_id, score)] against a reference lane summed in another
+    order: scores within rtol 1e-6 place by place, ids equal but for near-tie swaps.
+    Returns the queries whose ids differ."""
+    import numpy as np
+
+    differ = 0
+    for q, a, b in zip(qs, card, ref):
+        check(len(a) == len(b), f"{phase}: {what} lane lengths differ for {q!r}: {len(a)} vs {len(b)}")
+        if not a:
+            continue
+        differ += _near_tie_agree(phase, f"{what} lane of {q!r}", np.array([[s for _, s in a]]),
+                                  np.array([[f for f, _ in a]]), np.array([[s for _, s in b]]),
+                                  np.array([[f for f, _ in b]]))
+    return differ
+
+
+@contextlib.contextmanager
+def bm25_lane_as_on_card():
+    """The sharded BM25 lane's `auto` backend resolved on CPU postings as on the card:
+    the kernels' plain twins (K8's on an exact store) under the same plane guard,
+    instead of the plain merge harness, so a CPU orchestrator's lane can equal the
+    card's bit for bit."""
+    from wax_tpu_torch.ops.bm25_candidates_pallas import dma_window
+    from wax_tpu_torch.parallel import sharded_hybrid as sh
+
+    real = sh._resolve_lex_backend
+
+    def as_on_card(lex, backend, q2=16):
+        got = real(lex, backend, q2)
+        if backend == "auto" and got == "candidates":
+            q2_pow2 = 2
+            while q2_pow2 < q2:
+                q2_pow2 *= 2
+            if q2_pow2 * dma_window(int(lex.max_df)) <= sh._PALLAS_MAX_PLANE_ELEMS:
+                return "candidates_pallas"
+        return got
+
+    sh._resolve_lex_backend = as_on_card
+    try:
+        yield
+    finally:
+        sh._resolve_lex_backend = real
+
+
+def orch_sharded_phase(dev, seed: int, path: Path) -> dict:
+    """[orch_sharded]: [mcp]'s flushed store (102,400 documents and the session's notes,
+    HashEmbedder(384), exact postings) reopened read-only as
+    OrchestratorConfig(sharded_lanes=True) over 4 shards, then with mesh_slices=2:
+    N_ORCH_SHARDED searches and recalls one at a time (the BM25 lane through K8 on each
+    shard; the store's `auto` vector segment keeps its engine, K1 at B 1 on the lead
+    card); the two-level answers equal the flat mesh's, the BM25 lane the unsharded
+    reopen's, and the fused top-10 a CPU orchestrator's of the same config over the
+    same file (gated at ORCH_FUSED_FLOOR). Returns the launches of the served calls."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.embed.hash_embedder import HashEmbedder
+    from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
+    import wax_tpu_torch.search.unified as unified
+    from wax_tpu_torch.search import engine_cache
+    from wax_tpu_torch.types import SearchRequest
+
+    phase = "orch_sharded"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, queries = make_corpus(seed)
+    devs, how = mesh_devices(dev)
+    emb = HashEmbedder(384)
+    n = N_ORCH_SHARDED
+    reqs = [SearchRequest(query=q, top_k=10, embedding=emb.embed(q)) for q in queries[2][:64]]
+    out = {}
+    total = {kid: 0 for kid in KERNEL_IDS}
+    for label, cfg in (("4 shards", OrchestratorConfig(sharded_lanes=True)),
+                       ("2 x 2", OrchestratorConfig(sharded_lanes=True, mesh_slices=2))):
+        engine_cache.clear()
+        t0 = time.perf_counter()
+        o = MemoryOrchestrator(path, emb, cfg, readonly=True, device=devs)
+        t_open = time.perf_counter() - t0
+        try:
+            o.warmup(background=False)
+            t_warm = time.perf_counter() - t0
+            mesh = o.engine.mesh
+            check(o.engine.lex_sharded and mesh.corpus_shards == N_SHARDS and o.engine.device == dev,
+                  f"{phase} {label}: the orchestrator serves on {mesh} from {o.engine.device}")
+            reset_launch_counts()
+            lat = {"search": [], "recall": []}
+            sharded_calls = [0]
+            real = unified.sharded_bm25_topk
+
+            def counted(*a, **kw):  # the lane's device runs (a query's primary and OR fallback)
+                sharded_calls[0] += 1
+                return real(*a, **kw)
+
+            unified.sharded_bm25_topk = counted
+            try:
+                for i in range(n):
+                    t1 = time.perf_counter()
+                    resp = o.search(SearchRequest(query=queries[0][i], top_k=10))
+                    torch.cuda.synchronize()
+                    lat["search"].append((time.perf_counter() - t1) * 1e3)
+                    check(len(resp.hits) == 10, f"{phase} {label}: search {queries[0][i]!r} gave {len(resp.hits)} "
+                          "hits")
+                    t1 = time.perf_counter()
+                    ctx = o.recall(queries[1][i])
+                    torch.cuda.synchronize()
+                    lat["recall"].append((time.perf_counter() - t1) * 1e3)
+                    check(ctx.items, f"{phase} {label}: recall {queries[1][i]!r} found nothing")
+            finally:
+                unified.sharded_bm25_topk = real
+            launches = launch_counts()
+            runs = sharded_calls[0]
+            check(launches["K8"] == N_SHARDS * runs and runs > 0,
+                  f"{phase} {label}: K8 launched {launches['K8']} times for {runs} sharded BM25 runs on "
+                  f"{N_SHARDS} shards")
+            for kid, c in launches.items():
+                total[kid] += c
+            p = {key: np.percentile(v, [50, 99]) for key, v in lat.items()}
+            log(phase, f"{label} ({how}; mesh {mesh.axis_names} {mesh.axis_sizes}; vector engine "
+                f"{o.engine.vector.kind}): cold read-only open {t_open:.3f} s, warm {t_warm:.3f} s; {n} searches p50 "
+                f"{p['search'][0]:.3f} ms p99 {p['search'][1]:.3f} ms, {n} recalls p50 {p['recall'][0]:.3f} ms p99 "
+                f"{p['recall'][1]:.3f} ms (host clock, each ending in a device sync); launches {launches} "
+                f"(K8 = {N_SHARDS} shards x {runs} sharded BM25 runs: each lane call's primary query and, "
+                "where it found fewer than the fetch depth, its OR fallback)")
+            out[label] = ([o.search(r) for r in reqs], *_orch_lanes(o, reqs))
+        finally:
+            o.close()
+    engine_cache.clear()
+    flat, two = out["4 shards"], out["2 x 2"]
+    check(all(_hit_keys(a) == _hit_keys(c) for a, c in zip(flat[0], two[0])) and flat[1] == two[1]
+          and flat[2] == two[2], f"{phase}: the 2 x 2 mesh answers differently from the flat 4-shard mesh")
+    # the BM25 lane against the unsharded reopen (one device, the exact lane)
+    o = MemoryOrchestrator(path, emb, OrchestratorConfig(), readonly=True, device=dev)
+    try:
+        bm_one, _ = _orch_lanes(o, reqs)
+        state = {key: a.copy() for key, a in o.engine.vector.builder.state_arrays().items()}
+    finally:
+        o.close()
+    engine_cache.clear()
+    sharded_engine_check(phase, dev, devs, state, reqs)
+    d_one = _bm25_lanes_near(phase, "BM25 (4 shards, K8) vs unsharded", [r.query for r in reqs], flat[1], bm_one)
+    # the fused top-10 against a CPU orchestrator of the same config over the same file,
+    # its sharded BM25 lane on K8's plain twin (what `auto` picks on the card)
+    cpu = MemoryOrchestrator(path, emb, OrchestratorConfig(sharded_lanes=True), readonly=True, device=["cpu"] * N_SHARDS)
+    try:
+        with bm25_lane_as_on_card():
+            answers_cpu = [cpu.search(r) for r in reqs]
+            bm_cpu, vec_cpu = _orch_lanes(cpu, reqs)
+            _lanes_agree(phase, "BM25 (card vs CPU)", [r.query for r in reqs], flat[1], bm_cpu)
+            vec = _vector_lanes_agree(phase, "vector", reqs, flat[2], vec_cpu, cpu.engine.vector.snapshot())
+            fdiff = _fused_agree(phase, "orch_sharded", cpu, reqs, flat[0], answers_cpu, flat[2], vec_cpu)
+    finally:
+        cpu.close()
+    engine_cache.clear()
+    equal = (len(reqs) - fdiff) / len(reqs)
+    check(equal >= ORCH_FUSED_FLOOR, f"{phase}: fused top-10 equal on {100 * equal:.1f}% of queries, under the floor "
+          f"{100 * ORCH_FUSED_FLOOR:.0f}%")
+    log(phase, f"checks ({len(reqs)} searches): 2 x 2 answers, BM25 and vector lanes equal to the flat mesh's; the "
+        f"sharded BM25 lane against the unsharded reopen: scores within rtol 1e-6, ids equal on "
+        f"{len(reqs) - d_one} (the rest near-tie swaps); against a CPU orchestrator over 4 CPU shards (its BM25 lane "
+        f"on K8's plain twin): BM25 lanes equal, vector lanes equal on {len(reqs) - vec['differ']} (id overlap "
+        f"{vec['overlap']:.4f}), fused top-10 equal on {len(reqs) - fdiff} ({100 * equal:.1f}%, floor "
+        f"{100 * ORCH_FUSED_FLOOR:.0f}%); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return total
+
+
+def sharded_engine_check(phase, dev, devs, state, reqs) -> None:
+    """`make_vector_engine("sharded", mesh=...)` over a dense builder's vectors
+    (`state`: its state arrays) on 4 shards over `devs`: the snapshot's added device
+    memory per card against that card's shards; its answers to `reqs`' embeddings
+    against the same engine on one shard; its `sharded` segment loaded on the 2 x 2
+    mesh, bit for bit; an added row as a new generation; B 1 search p50."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.orchestrator.serialization import deserialize_vector_engine, serialize_vector_engine
+    from wax_tpu_torch.parallel.mesh import data_mesh, make_two_level_mesh
+    from wax_tpu_torch.search.vector_engines import make_vector_engine
+
+    live = state["active"] & (state["frame_ids"] >= 0)
+    fids, vecs = state["frame_ids"][live], state["emb"][live]
+    mesh4, mesh22 = data_mesh(devs), make_two_level_mesh(2, devices=devs)
+    eng = make_vector_engine("sharded", dim=vecs.shape[1], mesh=mesh4)
+    one = make_vector_engine("sharded", dim=vecs.shape[1], device=dev)
+    for e in (eng, one):
+        e.add_batch(fids, vecs)
+    cards = sorted(set(devs), key=str)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    before = {c: torch.cuda.memory_allocated(c) for c in cards}
+    t0 = time.perf_counter()
+    snap = eng.snapshot()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    t_snap = time.perf_counter() - t0
+    held = {c: torch.cuda.memory_allocated(c) - before[c] for c in cards}
+    shard_bytes = sum(t.numel() * t.element_size() for t in snap.shard(0))
+    for c in cards:
+        mine = sum(1 for x in mesh4.shard_devices if x == c)
+        check(held[c] <= mine * (shard_bytes + (1 << 20)), f"{phase}: the sharded engine's snapshot holds {held[c]} "
+              f"bytes on {c}, more than its {mine} shard(s) of {shard_bytes}")
+    qv = np.stack([np.asarray(r.embedding, np.float32) for r in reqs])
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    v4, f4 = eng.search(qv, 10)
+    v1, f1 = one.search(qv, 10)
+    check(v4.shape == (len(qv), 10) and bool(np.isfinite(v4).all()) and bool((f4 >= 0).all()),
+          f"{phase}: the sharded engine's answers are malformed")
+    differ = _near_tie_agree(phase, "sharded engine, 4 shards vs one", v4, f4, v1, f1)
+    blob, attrs = serialize_vector_engine(eng)
+    e22 = deserialize_vector_engine(blob, attrs, device=dev, mesh=mesh22)
+    check(e22.kind == "sharded" and e22.mesh == mesh22, f"{phase}: the sharded segment loaded as {e22.kind} on "
+          f"{getattr(e22, 'mesh', None)}")
+    v22, f22 = e22.search(qv, 10)
+    check(np.array_equal(v22, v4) and np.array_equal(f22, f4), f"{phase}: the sharded segment on 2 x 2 answers "
+          "otherwise than the engine on 4 shards")
+    lat = {}
+    for label, e in (("4 shards", eng), ("one shard", one)):
+        lat[label] = []
+        for i in range(len(qv)):  # `search` returns numpy: each call ends in a sync
+            t1 = time.perf_counter()
+            e.search(qv[i:i + 1], 10)
+            lat[label].append((time.perf_counter() - t1) * 1e3)
+    n_snap, new_id = eng.snapshot_count, int(fids.max()) + 1
+    x = np.random.default_rng(7).standard_normal((1, vecs.shape[1])).astype(np.float32)
+    x /= np.linalg.norm(x)
+    eng.add_batch(np.array([new_id]), x)
+    v, f = eng.search(x, 1)
+    check(int(f[0, 0]) == new_id and eng.snapshot_count == n_snap + 1,
+          f"{phase}: the sharded engine's next generation answered {f[0, 0]} (snapshots {eng.snapshot_count})")
+    log(phase, f"make_vector_engine(\"sharded\") over the store's {len(fids)} x {vecs.shape[1]} vectors on 4 shards "
+        f"({snap.local_rows} rows, {shard_bytes} bytes a shard, {snap.emb[0].dtype}): snapshot {t_snap:.3f} s, adding "
+        + ", ".join(f"{held[c]} bytes on {c}" for c in cards) + f"; B {len(qv)} k 10 against one shard: scores within "
+        f"rtol 1e-6, ids equal on {len(qv) - differ} (the rest near-ties); its segment on 2 x 2 bit-equal; an added "
+        f"row found by the next search (a new snapshot); B 1 search p50 {np.percentile(lat['4 shards'], 50):.3f} ms "
+        f"on 4 shards, {np.percentile(lat['one shard'], 50):.3f} ms on one (host clock, {len(qv)} calls)")
+
+
 # -------------------------------------------------------------------------------- main
 
 
@@ -3655,6 +4321,17 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     import wax_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    lex_job = start_engine_1m_lex(Path(tempfile.mkdtemp(prefix="wax-engine-1m-")), args.seed)
+    try:
+        return _main_phases(args, dev, smi, t_start, lex_job)
+    finally:
+        if lex_job[1].poll() is None:  # a phase before [engine_1m] failed
+            lex_job[1].kill()
+            lex_job[1].communicate()
+        shutil.rmtree(lex_job[0], ignore_errors=True)
+
+
+def _main_phases(args, dev, smi, t_start, lex_job) -> int:
     build_phase()
     hnsw_job = start_hnsw_build(dev, args.seed)  # [hnsw_100k]'s host build, beside the phases before it
     t0 = time.perf_counter()
@@ -3674,13 +4351,20 @@ def main(argv=None) -> int:
     import torch
 
     torch.cuda.empty_cache()
-    path_a = engine_1m_phase(dev, args.seed, results)
+    path_a = engine_1m_phase(dev, args.seed, results, lex_job)
     torch.cuda.empty_cache()
-    path_b = hybrid_1m_phase(dev, results)
+    kept = {}
+    path_b = hybrid_1m_phase(dev, results, keep=kept)
+    torch.cuda.empty_cache()
+    path_bs = hybrid_1m_sharded_phase(dev, kept)
+    kept.clear()
     torch.cuda.empty_cache()
     path_c = exact_30k_phase(dev, args.seed, results)
     torch.cuda.empty_cache()
-    path_d = ivf_1m_phase(dev, args.seed, results)
+    path_d = ivf_1m_phase(dev, args.seed, results, keep=kept)
+    torch.cuda.empty_cache()
+    shard_10m_phase(dev, args.seed, kept)
+    kept.clear()
     torch.cuda.empty_cache()
     path_e = auto_2m_phase(dev, args.seed, results)
     torch.cuda.empty_cache()
@@ -3709,19 +4393,22 @@ def main(argv=None) -> int:
         path_t = train_phase(dev, args.seed, results, tmp)
         torch.cuda.empty_cache()
         path_p = mcp_phase(dev, args.seed, tmp, store)
+        torch.cuda.empty_cache()
+        path_os = orch_sharded_phase(dev, args.seed, store[0])
     finally:
         if store is not None and store[1].poll() is None:
             store[1].kill()
             store[1].communicate()
         shutil.rmtree(tmp, ignore_errors=True)
-    launches["K1"] += path_f["K1"] + path_m["K1"] + path_mh["K1"] + path_t["K1"] + path_p["K1"]
+    launches["K1"] += (path_f["K1"] + path_m["K1"] + path_mh["K1"] + path_t["K1"] + path_p["K1"] + path_bs["K1"]
+                       + path_os["K1"])
     launches["K2"] += path_g["K2"]
-    launches["K3"] = path_a["K3"] + path_b["K3"] + path_f["K3"]
-    launches["K4"] = path_a["K4"] + path_b["K4"]
+    launches["K3"] = path_a["K3"] + path_b["K3"] + path_f["K3"] + path_bs["K3"]
+    launches["K4"] = path_a["K4"] + path_b["K4"] + path_bs["K4"]
     for kern in ("K6", "K7"):
-        launches[kern] = path_a[kern] + path_b[kern] + path_d[kern] + path_e[kern]
+        launches[kern] = path_a[kern] + path_b[kern] + path_d[kern] + path_e[kern] + path_bs[kern]
     launches["K5"] = path_a["K5"]
-    launches["K8"], launches["K9"] = path_c["K8"], path_c["K9"]
+    launches["K8"], launches["K9"] = path_c["K8"] + path_os["K8"], path_c["K9"]
 
     sources = {
         "K1": ("packed_sel_scan_topk", "flat_scan.cu", "wax_tpu/ops/flat_scan.py:201"),

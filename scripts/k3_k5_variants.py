@@ -195,7 +195,7 @@ def inputs(dev):
     import chip_smoke
     from wax_tpu_torch.ops import bm25_rescore as rs
 
-    lex = chip_smoke.synth_sharded_lex(chip_smoke.N_1M, 16_384, 3072, dev)
+    lex = chip_smoke.synth_sharded_lex(chip_smoke.synth_lex_arrays(chip_smoke.N_1M, 16_384, 3072), dev)
     tids = torch.from_numpy(np.random.default_rng(7).integers(0, 16_384, (256, 16)).astype(np.int32)).to(dev)
     _, _, _, (pr, pkk) = chip_smoke._k4_case("variants", lex.pk_chunks[0], lex.chunk_base[0], lex.chunk_counts[0],
                                              lex.pk_max_chunks, lex.pk_qb, tids)

@@ -268,7 +268,7 @@ def k4_inputs(dev):
     from wax_tpu_torch.index.lex import PK_CHUNK
     from wax_tpu_torch.ops import bm25_chunked_pallas as ck
 
-    lex = chip_smoke.synth_sharded_lex(chip_smoke.N_1M, 16_384, 3072, dev)
+    lex = chip_smoke.synth_sharded_lex(chip_smoke.synth_lex_arrays(chip_smoke.N_1M, 16_384, 3072), dev)
     tids = torch.from_numpy(np.random.default_rng(7).integers(0, 16_384, (256, 16)).astype(np.int32)).to(dev)
     pk = lex.pk_chunks[0]
     win = ck.pack_query_chunks(tids, lex.chunk_base[0], lex.chunk_counts[0], 32, lex.pk_max_chunks,

@@ -16,6 +16,7 @@ import torch
 from wax_tpu.search import vector_engines as jve
 from wax_tpu.search.engine import HybridSearchEngine as JaxHybrid
 from wax_tpu_torch.index.ivf import ivf_index_from_numpy
+from wax_tpu_torch.parallel.mesh import data_mesh
 from wax_tpu_torch.search import vector_engines as tve
 from wax_tpu_torch.search.engine import HybridSearchEngine
 
@@ -294,8 +295,11 @@ def test_make_vector_engine():
     eng = tve.make_vector_engine("hnsw", dim=8, device="cpu", m=4, ef_search=24)
     assert isinstance(eng, tve.HNSWVectorEngine) and eng.kind == "hnsw" and eng.ef_search == 24
     assert eng.builder.m == 4 and eng.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        tve.make_vector_engine("sharded", dim=8, device="cpu")
+    eng = tve.make_vector_engine("sharded", dim=8, device="cpu")
+    assert isinstance(eng, tve.ShardedFlatVectorEngine) and eng.kind == "sharded"
+    assert eng.mesh == data_mesh("cpu") and eng.device == torch.device("cpu")
+    eng = tve.make_vector_engine("sharded", dim=8, mesh=data_mesh(["cpu"] * 4), device_dtype=torch.bfloat16)
+    assert eng.mesh.corpus_shards == 4 and eng.device_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="unknown"):
         tve.make_vector_engine("metal", dim=8, device="cpu")
     assert tve.AUTO_ANN_ROWS == jve.AUTO_ANN_ROWS and tve.AUTO_RECALL_TARGET == jve.AUTO_RECALL_TARGET
@@ -306,7 +310,8 @@ def test_make_vector_engine():
 def test_hybrid_engine_vector_preference():
     """HybridSearchEngine's default is "auto"; below ann_rows it serves the flat
     engine's results; "ivf" and "hnsw" build their engines on the engine's device;
-    "sharded" is not ported yet."""
+    "sharded" splits the flat scan over the engine's mesh (4 logical CPU shards here)
+    and answers as the flat engine."""
     rng = _rng("hybrid")
     vecs = _normalize(rng.normal(size=(700, D)).astype(np.float32))
     q = _normalize(rng.normal(size=(5, D)).astype(np.float32))
@@ -332,8 +337,13 @@ def test_hybrid_engine_vector_preference():
     assert engines["hnsw"].vector.kind == "hnsw" and engines["hnsw"].vector.snapshot().device == torch.device("cpu")
     np.testing.assert_array_equal(hf, ff)
     np.testing.assert_allclose(hv, fv, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        HybridSearchEngine(None, dim=D, device="cpu", vector_preference="sharded")
+    sharded = HybridSearchEngine(None, dim=D, device="cpu", vector_preference="sharded",
+                                 mesh=data_mesh(["cpu"] * 4), lex_sharded=True)
+    sharded.index_embedding_batch(np.arange(700), vecs)
+    assert isinstance(sharded.vector, tve.ShardedFlatVectorEngine) and sharded.vector.mesh is sharded.mesh
+    sv, sf = sharded.vector.search(q, K)
+    np.testing.assert_array_equal(sf, ff)
+    np.testing.assert_allclose(sv, fv, rtol=1e-6)
     jeng = JaxHybrid(None, dim=D)
     jeng.vector.add_batch(np.arange(700), vecs)
     jv, jf = jeng.vector.search(q, K)

@@ -22,16 +22,16 @@ from wax_tpu_torch.index.lex import LexIndexBuilder
 from wax_tpu_torch.multimodal.photo import PhotoRAGOrchestrator
 from wax_tpu_torch.multimodal.video import VideoRAGOrchestrator
 from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
-from wax_tpu_torch.parallel.mesh import data_mesh
+from wax_tpu_torch.parallel.mesh import Mesh, data_mesh, make_mesh, make_two_level_mesh
 from wax_tpu_torch.parallel.train import Trainer
 from wax_tpu_torch.surfaces import cli as port_cli
 from wax_tpu_torch.surfaces.mcp_server import build_server
 from wax_tpu_torch.surfaces.repo import RepoIndexer
 from wax_tpu_torch.search.engine import HybridSearchEngine
 from wax_tpu_torch.search.vector_engines import (AutoVectorEngine, FlatVectorEngine, HNSWVectorEngine, IVFVectorEngine,
-                                                 make_vector_engine)
+                                                 ShardedFlatVectorEngine, make_vector_engine)
 from wax_tpu_torch.session import open_session
-from wax_tpu_torch.utils.device import full_f32_matmul, resolve_device
+from wax_tpu_torch.utils.device import full_f32_matmul, resolve_device, resolve_devices
 
 TINY = MiniLMConfig(vocab_size=100, hidden=16, layers=1, heads=2, intermediate=32, max_positions=16)
 
@@ -183,6 +183,15 @@ ENTRY_POINTS = {
     "Maintainer.rewrite_live_set(flat)": lambda **kw: _maintained_device("flat", "rewrite_live_set", **kw),
     "Maintainer.rewrite_live_set(hnsw)": lambda **kw: _maintained_device("hnsw", "rewrite_live_set", **kw),
     "Trainer": lambda **kw: Trainer(MiniLMEncoder(TINY), data_mesh(**kw) if kw else None).device,
+    "make_mesh": lambda **kw: make_mesh(kw.get("device")).device,
+    "make_two_level_mesh": lambda **kw: make_two_level_mesh(1, devices=kw.get("device")).device,
+    "Mesh": lambda **kw: Mesh(kw.get("device")).device,
+    "ShardedFlatVectorEngine": lambda **kw: ShardedFlatVectorEngine(8, **kw).device,
+    "make_vector_engine(sharded)": lambda **kw: make_vector_engine("sharded", 8, **kw).mesh.device,
+    "MemoryOrchestrator(sharded_lanes)": lambda **kw: _orchestrator_device(
+        config=OrchestratorConfig(sharded_lanes=True), **kw),
+    "MemoryOrchestrator(mesh_slices)": lambda **kw: _orchestrator_device(
+        config=OrchestratorConfig(sharded_lanes=True, mesh_slices=1), **kw),
     "build_server": _server_device,
     "RepoIndexer": _repo_device,
     "cli.main(remember)": _cli_device,
@@ -202,6 +211,29 @@ def test_entry_point_without_a_card_raises(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[entry]()
     assert ENTRY_POINTS[entry](device="cpu") == torch.device("cpu")
+
+
+def test_default_mesh_is_every_visible_card(monkeypatch):
+    """No devices: every visible CUDA device, as JAX's meshes take jax.devices()."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    want = tuple(torch.device("cuda", i) for i in range(4))
+    assert resolve_devices(None) == want and data_mesh().devices == want
+    assert make_two_level_mesh(2).shape == {"slice": 2, "data": 2}
+    assert resolve_devices("cuda") == (torch.device("cuda", 0),)
+    assert data_mesh("cuda:1").devices == (torch.device("cuda", 1),)
+
+
+@pytest.mark.parametrize("build", [
+    lambda d: data_mesh(d), lambda d: Mesh(d), lambda d: make_two_level_mesh(2, devices=d),
+    lambda d: resolve_devices(d), lambda d: _orchestrator_device(config=OrchestratorConfig(sharded_lanes=True), device=d),
+], ids=["data_mesh", "Mesh", "make_two_level_mesh", "resolve_devices", "MemoryOrchestrator"])
+def test_mixed_cpu_and_cuda_mesh_raises(build):
+    """A mesh holds CPU devices or CUDA devices: a mix raises, and nothing falls back
+    to the CPU."""
+    with pytest.raises(ValueError, match="CPU devices or CUDA devices"):
+        build(["cpu", "cuda:0", "cpu", "cuda:0"])
 
 
 def test_f32_pin_leaves_cpu_calls_alone():

@@ -112,6 +112,29 @@ def test_build_impact_chunks_equal(seed, n_terms, n_rows, max_df):
     assert tqb == jqb
 
 
+@pytest.mark.parametrize("seed", [4, 9])
+def test_impact_order_equals_lexsort(seed):
+    """The impact order's one packed sort gives `np.lexsort((rows, -con, tid))` on
+    CSR postings whose rows ascend within each term (a snapshot's order), ties of
+    equal contributions included."""
+    rows, wn, offsets, idf = _random_csr(seed, 30, 4000, 900, 0.05)
+    tid = np.repeat(np.arange(len(offsets) - 1, dtype=np.int64), np.diff(offsets))
+    con = wn.astype(np.float64) * idf.astype(np.float64)[tid]
+    r64 = rows.astype(np.int64)
+    np.testing.assert_array_equal(tlex._impact_order(r64, con, tid), np.lexsort((r64, -con, tid)))
+
+
+def test_impact_chunks_need_ascending_rows():
+    """Postings whose rows do not ascend within a term raise instead of building
+    chunks in another order than the JAX package's."""
+    rows, wn, offsets, idf = _random_csr(4, 30, 4000, 900, 0.05)
+    t = int(np.argmax(np.diff(offsets)))
+    a, b = offsets[t], offsets[t + 1]
+    rows[a:b] = rows[a:b][::-1].copy()
+    with pytest.raises(ValueError, match="rows ascending"):
+        tlex.build_impact_chunks(rows, wn, offsets, idf.astype(np.float64), 4096)
+
+
 @pytest.mark.parametrize("width", [1, 40, 64, 65, 128, 200])
 def test_fuse_forward_equal(width):
     rng = np.random.default_rng(width)

@@ -46,7 +46,7 @@ def test_port_imports_without_jax():
         "text.wordpiece", "text.unicode61_tables", "embed.provider", "embed.minilm",
         "utils.concurrency", "utils.device", "ops.bm25_candidates", "ops.bm25_rescore",
         "ops.bm25_chunked_pallas", "ops.chunkmax_scan", "ops.ivf_kernel", "parallel.mesh",
-        "parallel.merge", "parallel.sharded_scan", "parallel.sharded_hybrid", "search.unified",
+        "parallel.merge", "parallel.sharded_scan", "parallel.sharded_hybrid", "parallel.sharded_ivf", "search.unified",
         "index.ivf", "index.graph", "index.graph_cpp", "ops.beam_search", "session",
         "orchestrator.serialization", "orchestrator.orchestrator", "orchestrator.maintenance",
         "text.pdf", "rag.answer", "multimodal.protocols", "multimodal.ocr", "multimodal.photo",

@@ -9,8 +9,8 @@ strings, once with exact postings and once under a manual postings budget (the
 candidate lane). Then stores cross between the packages in both directions, a cold
 reopen answers as a reclaimed one, a parked engine of another device is not served,
 an hnsw config serves and a JAX hnsw store opens, the maintainer serves, files and
-PDFs are remembered alike, and the sharded configurations the port leaves for later
-raise NotImplementedError.
+PDFs are remembered alike, and the sharded configurations serve over logical CPU
+shards (topologies that do not divide the devices raise ValueError).
 """
 import itertools
 import os
@@ -35,7 +35,9 @@ import wax_tpu_torch.search.engine_cache as port_cache
 import wax_tpu_torch.structured.memory as port_memory
 import wax_tpu_torch.text.chunker as port_chunker
 import wax_tpu_torch.types as port_types
-from wax_tpu_torch.search.vector_engines import AutoVectorEngine, FlatVectorEngine, IVFVectorEngine
+from wax_tpu_torch.parallel.mesh import data_mesh
+from wax_tpu_torch.search.vector_engines import (AutoVectorEngine, FlatVectorEngine, IVFVectorEngine,
+                                                 ShardedFlatVectorEngine)
 from wax_tpu_torch.utils.profiling import span_stats
 
 # Each pytest-xdist worker builds and loads the native C++ library (both packages read
@@ -299,14 +301,15 @@ def test_ivf_store_crosses_packages(tmp_path, writer, reader):
 
 def test_sharded_segment_loads_as_flat(tmp_path):
     """A JAX store served by the mesh-sharded engine (sharded_lanes on the 8-device CPU
-    mesh) opens in the port as a flat engine with equal answers."""
+    mesh) opens in the port's default config as the mesh-sharded flat engine on a
+    one-device mesh of the reader's device, with equal answers."""
     w = _write("jax", tmp_path / "m.mv2s", sharded_lanes=True)
     assert w.engine.vector.kind == "sharded"
     w.close()
     want = _reopened_answers("jax", tmp_path / "m.mv2s", sharded_lanes=True)
     r = _open("port", tmp_path / "m.mv2s")
     try:
-        assert type(r.engine.vector) is FlatVectorEngine
+        assert type(r.engine.vector) is ShardedFlatVectorEngine and r.engine.vector.mesh == data_mesh("cpu")
         for a, b in zip(want, _answers(r)):
             _assert_same_response(a, b)
     finally:
@@ -379,14 +382,47 @@ def test_parked_engine_of_another_device_is_not_served(tmp_path):
         port_cache.clear()
 
 
-@pytest.mark.parametrize("config,match", [
-    ({"sharded_lanes": True}, "item 5"),
-    ({"sharded_lanes": True, "vector_engine": "flat", "mesh_slices": 2}, "item 5"),
-    ({"sharded_lanes": True, "vector_engine": "ivf", "mesh_tp": 2}, "item 5"),
+@pytest.mark.parametrize("config,devices", [
+    ({"sharded_lanes": True}, ["cpu"] * 4),
+    ({"sharded_lanes": True, "vector_engine": "flat", "mesh_slices": 2}, ["cpu"] * 4),
+    ({"sharded_lanes": True, "vector_engine": "ivf", "mesh_tp": 2}, ["cpu"] * 4),
 ], ids=["sharded_auto", "mesh_slices", "mesh_tp"])
-def test_later_slices_raise(tmp_path, config, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _open("port", tmp_path / "m.mv2s", _config("port", **config))
+def test_later_slices_serve(tmp_path, config, devices):
+    """The sharded configurations serve over a mesh of logical CPU shards: the
+    `auto` engine becomes the mesh-sharded flat engine, `mesh_slices` and `mesh_tp`
+    give the two-level mesh, and both lanes share the mesh (an IVF engine is not
+    sharded: it serves on the lead device); answers equal the unsharded
+    orchestrator's."""
+    a = _write("port", tmp_path / "a.mv2s", vector_engine=config.get("vector_engine", "auto"))
+    b = _open("port", tmp_path / "b.mv2s", _config("port", **config), device=devices)
+    try:
+        _ingest(b)
+        b.flush()
+        b.remember("A late note about the river cabin, left in the WAL.")
+        assert b.engine.lex_sharded and b.engine.device == torch.device("cpu")
+        assert b.engine.mesh.devices == (torch.device("cpu"),) * 4
+        assert b.engine.mesh.axis_names == (("slice", "data", "tp") if config.get("mesh_tp") else
+                                            ("slice", "data") if config.get("mesh_slices") else ("data",))
+        assert b.engine.vector.kind == {"auto": "sharded"}.get(config.get("vector_engine", "auto"),
+                                                               config.get("vector_engine"))
+        if b.engine.vector.kind == "sharded":
+            assert b.engine.vector.mesh is b.engine.mesh
+        for x, y in zip(_answers(a), _answers(b)):
+            assert x.hits
+            _assert_same_response(x, y)
+    finally:
+        a.close()
+        b.close()
+    _open("port", tmp_path / "m.mv2s").close()  # no lease left behind
+
+
+@pytest.mark.parametrize("config,devices,match", [
+    ({"sharded_lanes": True, "mesh_slices": 3}, ["cpu"] * 4, "does not divide"),
+    ({}, ["cpu"] * 4, "sharded_lanes"),
+], ids=["slices_do_not_divide", "devices_without_sharded_lanes"])
+def test_bad_topologies_raise(tmp_path, config, devices, match):
+    with pytest.raises(ValueError, match=match):
+        _open("port", tmp_path / "m.mv2s", _config("port", **config), device=devices)
     _open("port", tmp_path / "m.mv2s").close()  # no lease left behind
 
 

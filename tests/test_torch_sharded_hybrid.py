@@ -83,15 +83,19 @@ def test_shard_lex_index_arrays_equal(built, budget):
     js = jsh.shard_lex_index(jl, jax_mesh(1), N)
     ts = tsh.shard_lex_index(tl, torch_mesh("cpu"), N)
     p = int(np.asarray(js.offsets)[0, -1])
+
+    def stacked(x):  # the port's per-shard tuple as JAX's [S, ...] array
+        return torch.stack(x).numpy() if isinstance(x, tuple) else x.numpy()
+
     for f in ("doc_rows", "tfs", "wnorm"):
-        np.testing.assert_array_equal(getattr(ts, f).numpy()[:, :p], np.asarray(getattr(js, f))[:, :p], err_msg=f)
-        assert getattr(ts, f).shape[1] >= p
+        np.testing.assert_array_equal(stacked(getattr(ts, f))[:, :p], np.asarray(getattr(js, f))[:, :p], err_msg=f)
+        assert stacked(getattr(ts, f)).shape[1] >= p
     for f in ("offsets", "idf", "doc_len", "frame_ids", "live", "row_base", "avgdl", "fwd_tids", "fwd_wnorm",
               "fwd_fused", "pk_chunks", "chunk_base", "chunk_counts"):
         j, t = getattr(js, f), getattr(ts, f)
         assert (j is None) == (t is None), f
         if j is not None:
-            np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=f)
+            np.testing.assert_array_equal(stacked(t), np.asarray(j), err_msg=f)
     for f in ("max_df", "pk_qb", "pk_max_chunks", "fwd_width"):
         assert getattr(ts, f) == getattr(js, f), f
     assert (ts.fwd_fused is not None) == (budget is not None)
@@ -164,7 +168,7 @@ def test_resolve_lex_backend_decides_on_the_device(built):
     including its plane guard (the tensor's device is all the rule reads)."""
     ts = tsh.shard_lex_index(built[0][BUDGET][1], torch_mesh("cpu"), N)
     assert tsh._resolve_lex_backend(ts, "auto") == "candidates"
-    on_card = dataclasses.replace(ts, doc_rows=types.SimpleNamespace(device=torch.device("cuda")))
+    on_card = dataclasses.replace(ts, doc_rows=(types.SimpleNamespace(device=torch.device("cuda")),))
     assert tsh._resolve_lex_backend(on_card, "auto", q2=16) == "candidates_pallas"
     assert tsh._resolve_lex_backend(dataclasses.replace(on_card, max_df=200_000), "auto", q2=16) == "candidates"
     assert tsh._resolve_lex_backend(on_card, "auto", q2=16 * 1024) == "candidates"

@@ -30,6 +30,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import torch
 import pytest
 
 import wax_tpu.embed.hash_embedder as jax_hash
@@ -392,11 +393,31 @@ def test_license_gate(tmp_path, hash_env, case):
         srv.close()
 
 
-def test_sharded_lanes_on_more_than_one_slice_raise(tmp_path, hash_env):
+@pytest.mark.parametrize("slices,tp", [(2, 1), (2, 2), (3, 1)], ids=["two_slices", "two_slices_tp2", "three_slices"])
+def test_sharded_lanes_on_more_than_one_slice_raise(tmp_path, hash_env, slices, tp):
+    """WAX_TPU_SHARDED_LANES / WAX_TPU_MESH_SLICES / WAX_TPU_MESH_TP reach the port's
+    orchestrator as they reach JAX's: over four logical CPU shards two slices serve
+    (with tp 2 too) on the two-level mesh shared by both lanes; three slices do not
+    divide four devices and raise ValueError, as in JAX."""
     hash_env.setenv("WAX_TPU_SHARDED_LANES", "1")
-    hash_env.setenv("WAX_TPU_MESH_SLICES", "2")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port_mcp.build_server(tmp_path / "scale.wxs", device="cpu")
+    hash_env.setenv("WAX_TPU_MESH_SLICES", str(slices))
+    hash_env.setenv("WAX_TPU_MESH_TP", str(tp))
+    if slices == 3:
+        with pytest.raises(ValueError, match="does not divide"):
+            port_mcp.build_server(tmp_path / "scale.wxs", device=["cpu"] * 4)
+        return
+    srv = port_mcp.build_server(tmp_path / "scale.wxs", device=["cpu"] * 4)
+    try:
+        cfg, eng = srv.orch.config, srv.orch.engine
+        assert cfg.sharded_lanes and (cfg.mesh_slices, cfg.mesh_tp) == (slices, tp)
+        assert eng.mesh.shape["slice"] == slices and eng.mesh.shape.get("tp", 1) == tp
+        assert eng.vector.kind == "sharded" and eng.vector.mesh is eng.mesh and eng.lex_sharded
+        assert srv.orch.device == torch.device("cpu")
+        assert "error" not in _port_call(srv, "wax_remember", {"content": "a sharded memory about the river"})
+        found = json.loads(_port_call(srv, "wax_search", {"query": "sharded river memory"})["result"]["content"][0]["text"])
+        assert found["hits"]
+    finally:
+        srv.close()
 
 
 def test_scale_knobs_reach_the_config(tmp_path, hash_env):

@@ -83,6 +83,20 @@ def packed_row_bits(n_cap: int) -> tuple[int, int]:
     return rb, qb
 
 
+def _impact_order(rows, con, tid_post):
+    """The permutation `np.lexsort((rows, -con, tid_post))`: term ascending, then
+    contribution descending, then row ascending, as one stable sort of (term,
+    contribution rank) packed in an int64 (a fraction of the three-key lexsort's
+    cost). The postings must be in CSR order with each term's rows ascending, as
+    every snapshot's are (the builder's CSR, its budgeted heads and each shard's
+    slice keep that order); other input raises ValueError."""
+    if np.any((rows[1:] <= rows[:-1]) & (tid_post[1:] == tid_post[:-1])):
+        raise ValueError("impact chunks need CSR postings with each term's rows ascending")
+    uniq, rank = np.unique(con, return_inverse=True)
+    bits = max(1, (len(uniq) - 1).bit_length())  # terms < 2^31 and postings < 2^31: the key fits
+    return np.argsort((tid_post << bits) | (len(uniq) - 1 - rank.reshape(-1)), kind="stable")
+
+
 def build_impact_chunks(doc_rows, wnorm, offsets, idf, n_cap):
     """Impact-chunked packed postings for the chunked candidate kernel (K4).
 
@@ -115,11 +129,13 @@ def build_impact_chunks(doc_rows, wnorm, offsets, idf, n_cap):
             scale = 1.0
         qcon = np.clip(np.rint(con / scale * qmax), 1, qmax).astype(np.int64)
         qcon = np.where(con > 0.0, qcon, 0)
-        p1 = np.lexsort((rows, -con, tid_post))  # impact order within each term
+        p1 = _impact_order(rows, con, tid_post)
         starts = np.concatenate([[0], np.cumsum(sizes)])
         chunk_j = (np.arange(p_total, dtype=np.int64) - starts[tid_post[p1]]) // PK_CHUNK
         gchunk = chunk_base[tid_post[p1]].astype(np.int64) + chunk_j
-        p2 = np.lexsort((rows[p1], gchunk))  # row order within each chunk
+        # row order within each chunk: one sort of (chunk, row) packed in an int64
+        # (rows < n_cap; a chunk holds one term's postings, so the keys are unique)
+        p2 = np.argsort((gchunk << max(1, (int(n_cap) - 1).bit_length())) | rows[p1], kind="stable")
         g_sorted = gchunk[p2]
         src = p1[p2]
         first_of_chunk = np.concatenate([[True], g_sorted[1:] != g_sorted[:-1]])

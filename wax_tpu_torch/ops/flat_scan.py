@@ -95,11 +95,27 @@ def _index_bias(index: DenseIndex) -> torch.Tensor:
     return torch.where(live, zero, NEG_INF)
 
 
+# rows widened at once: a bf16 block is widened to f32 before its product, and 2.6M
+# rows at d 768 would take an 8 GB temporary
+_ROW_BLOCK = 1 << 20
+
+
 @full_f32_matmul
-def _scores_f32(q: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """[B, N] f32 dot products. bf16 operands are widened first (their products are
-    exact in f32), so every path accumulates in f32, TF32 turned on or not."""
-    return torch.matmul(q.float(), emb.float().t())
+def _scores_f32(q: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, N] f32 dot products, plus the row bias when given. bf16 operands are
+    widened first, _ROW_BLOCK rows at a time (their products are exact in f32), so
+    every path accumulates in f32, TF32 turned on or not."""
+    qf, n = q.float(), emb.shape[0]
+    if n <= _ROW_BLOCK:
+        scores = torch.matmul(qf, emb.float().t())
+        return scores if bias is None else scores + bias[None, :]
+    out = torch.empty((q.shape[0], n), dtype=torch.float32, device=emb.device)
+    for lo in range(0, n, _ROW_BLOCK):
+        hi = min(n, lo + _ROW_BLOCK)
+        out[:, lo:hi] = torch.matmul(qf, emb[lo:hi].float().t())
+        if bias is not None:
+            out[:, lo:hi] += bias[None, lo:hi]
+    return out
 
 
 def scan_scores(queries: torch.Tensor, index: DenseIndex) -> torch.Tensor:

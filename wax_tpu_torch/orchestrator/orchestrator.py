@@ -21,9 +21,13 @@ both directions (`orchestrator/serialization.py`). Differences from the JAX modu
   nvcc build nor their first launch;
 - every vector engine serves (`vector_engine` "auto", "flat", "hnsw" or "ivf"), and
   `warmup()` runs one search on the engine's snapshot through its `trace`;
-- `sharded_lanes=True` serves on the one-device mesh with the flat or IVF engine; with
-  `vector_engine="auto"` (the mesh-sharded flat engine), `mesh_slices > 1` or
-  `mesh_tp > 1` it raises NotImplementedError (ROADMAP queue 1, item 5);
+- `sharded_lanes=True` serves both device lanes over one mesh, as JAX's does: the
+  BM25 lane by the sharded program and, with `vector_engine="auto"`, the vector lane by
+  the mesh-sharded flat engine; `mesh_slices > 1` or `mesh_tp > 1` gives the
+  two-level mesh. The mesh is single-controller (`parallel/mesh.py`): `device` may then
+  be a sequence of devices, one corpus shard each (repeats are logical shards on one
+  device; None: every visible CUDA device), and the first of them leads; a sequence
+  without `sharded_lanes` raises ValueError;
 - a parked vector engine is reclaimed only onto its own device, and it keeps its
   device snapshot (device memory) after `close()` until the engine cache drops it
   (`search/engine_cache.clear()`);
@@ -47,6 +51,7 @@ from pathlib import Path
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from wax_tpu_torch.embed.hash_embedder import HashEmbedder
 from wax_tpu_torch.embed.memoizer import EmbeddingMemoizer
@@ -71,7 +76,7 @@ from wax_tpu_torch.storage.store import StoreError, WaxStore
 from wax_tpu_torch.text.chunker import chunk_text
 from wax_tpu_torch.text.token_counter import TokenCounter
 from wax_tpu_torch.utils.concurrency import RWLock
-from wax_tpu_torch.utils.device import resolve_device
+from wax_tpu_torch.utils.device import resolve_device, resolve_devices
 from wax_tpu_torch.utils.profiling import span, span_stats
 from wax_tpu_torch.types import (
     FrameKind,
@@ -173,20 +178,19 @@ class MemoryOrchestrator:
         """`readonly=True` opens with a shared lease: searches/recall work, any
         mutation raises (reference: WaxSession read-only mode, WaxSession.swift:50-74).
         `device` holds the index snapshots (None: the current CUDA device; "cpu" on
-        request)."""
+        request). With `sharded_lanes` it may be a sequence of devices, the mesh's
+        (None: every visible CUDA device); the snapshots that are not sharded live
+        on the first."""
         self.config = config
         self.path = Path(path)
         self.readonly = readonly
-        self.device = resolve_device(device)
-        if config.sharded_lanes and (
-            config.vector_engine == "auto" or config.mesh_slices > 1 or config.mesh_tp > 1
-        ):
-            raise NotImplementedError(
-                "sharded_lanes with vector_engine='auto' (the mesh-sharded flat engine), "
-                "mesh_slices > 1 or mesh_tp > 1 need multi-GPU serving, which is not ported "
-                "yet (ROADMAP queue 1, item 5: multi-GPU); use vector_engine='flat' or 'ivf' "
-                "on the one-device mesh"
-            )
+        if isinstance(device, (str, torch.device)) or (device is None and not config.sharded_lanes):
+            self.devices = (resolve_device(device),)
+        elif config.sharded_lanes:
+            self.devices = resolve_devices(device)
+        else:
+            raise ValueError("a sequence of devices is a mesh: set sharded_lanes=True to serve over it")
+        self.device = self.devices[0]
         self._lock = RWLock()
         self._closed = False
         self._now = config.clock_ms if config.clock_ms is not None else now_ms
@@ -218,11 +222,18 @@ class MemoryOrchestrator:
             StructuredMemory(now=self._now) if config.enable_structured_memory else None
         )
         mesh = None
+        vector_preference = (
+            "sharded" if config.sharded_lanes and config.vector_engine == "auto" else config.vector_engine
+        )
         if config.sharded_lanes:
-            # the sharded BM25 lane on the one-device mesh (multi-GPU is item 5)
-            from wax_tpu_torch.parallel.mesh import data_mesh
+            # both sharded lanes ride ONE mesh (the engine hands it to a sharded vector
+            # engine); mesh_slices > 1 selects the two-level topology
+            from wax_tpu_torch.parallel.mesh import data_mesh, make_two_level_mesh
 
-            mesh = data_mesh(self.device)
+            if config.mesh_slices > 1 or config.mesh_tp > 1:
+                mesh = make_two_level_mesh(max(config.mesh_slices, 1), tp=config.mesh_tp, devices=self.devices)
+            else:
+                mesh = data_mesh(self.devices)
         self.engine = HybridSearchEngine(
             embedder=self.memoizer,
             dim=embedder.dimensions,
@@ -232,7 +243,7 @@ class MemoryOrchestrator:
                 if self.structured is not None
                 else None
             ),
-            vector_preference=config.vector_engine,
+            vector_preference=vector_preference,
             device=self.device,
             lex_sharded=config.sharded_lanes,
             mesh=mesh,
@@ -301,7 +312,7 @@ class MemoryOrchestrator:
             if vec_blob is not None and self.config.enable_vector_search:
                 with span("open.vec_decode"):
                     self.engine.vector = deserialize_vector_engine(
-                        vec_blob, vec_man.attrs, device=self.engine.device
+                        vec_blob, vec_man.attrs, device=self.engine.device, mesh=self.engine.mesh
                     )
         # catch-up: replay pending embeddings recovered from the WAL / overflow segment
         if self.structured is not None:
@@ -381,7 +392,8 @@ class MemoryOrchestrator:
         """Drop the vector index and re-embed every live frame that has search text
         with the current provider (embedder_mismatch='reindex')."""
         old = self.engine.vector
-        self.engine.vector = make_vector_engine(old.kind, dim=old.dim, device=self.engine.device)
+        kw = {"mesh": old.mesh} if old.kind == "sharded" else {}
+        self.engine.vector = make_vector_engine(old.kind, dim=old.dim, device=self.engine.device, **kw)
         fids: list[int] = []
         texts: list[str] = []
         for m in self.store.timeline(include_superseded=False):
@@ -787,8 +799,6 @@ class MemoryOrchestrator:
                 if vec_snap is not None:
                     vec.trace(vec_snap)
                 if lex_snap is not None:
-                    import torch
-
                     padded = torch.from_numpy(pad_term_ids([0])[None, :]).to(self.engine.device)
                     _bm25_run(self.engine, padded, 24, "any", snap=lex_snap)
             except Exception:  # noqa: BLE001 — warmup must never break an open

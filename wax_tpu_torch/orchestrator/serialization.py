@@ -12,8 +12,7 @@ remain readable.
 PyTorch port of `wax_tpu.orchestrator.serialization`: the blobs and attrs are the JAX
 package's, byte for byte, so a store written by either package opens in the other.
 Engines are rebuilt on an explicit `device`. A `sharded` segment is layout-free and
-loads as a flat engine (the mesh-sharded engine waits for multi-GPU, ROADMAP queue 1,
-item 5).
+loads as the mesh-sharded flat engine on the caller's mesh.
 """
 from __future__ import annotations
 
@@ -160,16 +159,21 @@ def _serialize_vector_engine(engine) -> tuple[bytes, dict[str, str]]:
     raise ValueError(f"unknown vector engine kind {engine.kind!r}")
 
 
-def deserialize_vector_engine(blob: bytes, attrs: dict[str, str], device=None):
+def deserialize_vector_engine(blob: bytes, attrs: dict[str, str], device=None, mesh=None):
     """The segment's engine with its snapshots on `device` (None: the current CUDA
-    device). A `sharded` segment (layout-free) loads as a flat engine."""
+    device). A `sharded` segment (layout-free) loads as ShardedFlatVectorEngine on
+    `mesh`, the caller's configured topology, or without one on `data_mesh(device)`
+    (a one-device mesh for a device; every visible CUDA device for None)."""
     from wax_tpu_torch.search.vector_engines import (AutoVectorEngine, FlatVectorEngine, HNSWVectorEngine,
-                                                     IVFVectorEngine)
+                                                     IVFVectorEngine, ShardedFlatVectorEngine)
 
     kind = attrs.get("engine", "flat")
     if kind in ("flat", "sharded", "auto"):
         builder = deserialize_dense(blob, attrs)
-        if kind == "auto":
+        if kind == "sharded":
+            eng = ShardedFlatVectorEngine(dim=builder.dim, similarity=builder.similarity, mesh=mesh,
+                                          device=device)
+        elif kind == "auto":
             eng = AutoVectorEngine(dim=builder.dim, similarity=builder.similarity, device=device)
         else:
             eng = FlatVectorEngine(dim=builder.dim, similarity=builder.similarity, device=device)

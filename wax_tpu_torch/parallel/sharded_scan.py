@@ -1,8 +1,15 @@
-"""Corpus-sharded dense index layout.
+"""Mesh-sharded dense scan: distributed flat-scan top-k over a corpus-sharded index.
 
-PyTorch port of `wax_tpu.parallel.sharded_scan`'s `ShardedDenseIndex` and
-`shard_dense_index` on a one-device mesh: the [N_pad, d] matrix, the frame ids and an
-additive row bias (0 live, NEG_INF dead) on the mesh's device.
+PyTorch port of `wax_tpu.parallel.sharded_scan`. The [N, d] embedding matrix is split
+into row blocks, one per corpus shard, each on its shard's device; the query batch is
+replicated; each shard computes its exact local top-k (f32-accumulated products plus
+the row bias, then `blockmax_topk`) and the candidates merge on the lead device
+(`parallel/merge.py`). The JAX module runs this as XLA with no Pallas kernel, so the
+port's body is plain torch too; its f32 products stay f32 when a process turns TF32 on.
+
+Determinism: the global candidate order is (shard, local extraction order) and every
+merge is a stable top-k, so ties resolve alike on every run and on every mesh shape
+over the same global row order.
 """
 from __future__ import annotations
 
@@ -11,27 +18,44 @@ from dataclasses import dataclass
 import torch
 
 from wax_tpu_torch.index.dense import DenseIndex
-from wax_tpu_torch.ops.topk import NEG_INF
-from wax_tpu_torch.parallel.mesh import Mesh, corpus_shards
+from wax_tpu_torch.ops.flat_scan import _scores_f32
+from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk
+from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
+from wax_tpu_torch.parallel.mesh import Mesh, corpus_shards, on_device, replicate, shard_rows
 
-__all__ = ["ShardedDenseIndex", "shard_dense_index"]
+__all__ = ["ShardedDenseIndex", "shard_dense_index", "sharded_flat_scan_topk"]
 
 
 @dataclass(frozen=True)
 class ShardedDenseIndex:
     """emb [N_pad, d], frame_ids [N_pad] i32 and bias [N_pad] f32 (0 live, NEG_INF
-    dead); `contiguous` when the live rows form a dense prefix, which the chunkmax
-    dense lane requires."""
+    dead) split into equal row blocks, one per corpus shard: each field is a tuple of
+    the shards' blocks on their devices (views of one tensor where the shards share a
+    device). `contiguous` when the live rows form a dense prefix (each shard's live
+    rows are then a prefix too), which the chunkmax dense lane requires."""
 
-    emb: torch.Tensor
-    frame_ids: torch.Tensor
-    bias: torch.Tensor
+    emb: tuple
+    frame_ids: tuple
+    bias: tuple
     contiguous: bool = False
 
+    @property
+    def n_shards(self) -> int:
+        return len(self.emb)
 
-def shard_dense_index(index: DenseIndex, mesh: Mesh) -> ShardedDenseIndex:
+    @property
+    def local_rows(self) -> int:
+        return self.emb[0].shape[0]
+
+    def shard(self, s: int):
+        """(emb, frame_ids, bias) of corpus shard s."""
+        return self.emb[s], self.frame_ids[s], self.bias[s]
+
+
+def shard_dense_index(index: DenseIndex, mesh: Mesh, dtype: torch.dtype | None = None) -> ShardedDenseIndex:
     """Lay a DenseIndex snapshot out over the mesh: rows padded to a multiple of the
-    shard count (padding rows carry NEG_INF bias and frame id -1)."""
+    shard count (padding rows carry NEG_INF bias and frame id -1), each shard's block
+    moved to its device and, with `dtype`, cast there."""
     n_shards = corpus_shards(mesh)
     cap = index.capacity
     pad = (-cap) % n_shards
@@ -43,6 +67,29 @@ def shard_dense_index(index: DenseIndex, mesh: Mesh) -> ShardedDenseIndex:
         emb = torch.nn.functional.pad(emb, (0, 0, 0, pad))
         fids = torch.nn.functional.pad(fids, (0, pad), value=-1)
         bias = torch.nn.functional.pad(bias, (0, pad), value=NEG_INF)
-    dev = mesh.device
-    return ShardedDenseIndex(emb=emb.to(dev).contiguous(), frame_ids=fids.to(dev),
-                             bias=bias.to(dev).contiguous(), contiguous=index.contiguous)
+    emb = shard_rows(mesh, emb)
+    if dtype is not None:
+        emb = tuple(e.to(dtype) for e in emb)
+    return ShardedDenseIndex(emb=emb, frame_ids=shard_rows(mesh, fids), bias=shard_rows(mesh, bias),
+                             contiguous=index.contiguous)
+
+
+def sharded_flat_scan_topk(queries, index: ShardedDenseIndex, k: int, mesh: Mesh):
+    """Distributed dense top-k: each shard's exact local top-k (queries cast to the
+    rows' dtype, f32-accumulated products plus the bias, blockmax top-k), issued on its
+    device with no host synchronisation, then the merge across the mesh.
+
+    queries [B, d] (numpy or a tensor). Returns (scores [B, k] f32, frame_ids [B, k]
+    i32) on the mesh's lead device."""
+    q = torch.as_tensor(queries, dtype=torch.float32)
+    qs = replicate(mesh, q)
+    vals, fids = [], []
+    for s, dev in enumerate(mesh.shard_devices):
+        emb, sf, bias = index.shard(s)
+        with on_device(dev):
+            kk = min(k, emb.shape[0])
+            v, rows = blockmax_topk(_scores_f32(qs[s].to(emb.dtype), emb, bias), kk)
+            vals.append(v)
+            fids.append(torch.where(v > NEG_INF * 0.5, sf[rows.clamp(min=0).long()], -1))
+    mv, mf = merge_topk_across_mesh(vals, fids, int(k), mesh)
+    return mv, mf.to(torch.int32)

@@ -5,7 +5,7 @@ PyTorch port of `wax_tpu.parallel.train`: a symmetric InfoNCE dual-encoder objec
 recipe MiniLM itself was distilled with) and an AdamW train step. Differences from
 the JAX module:
 
-  * the mesh is the port's one-device `data_mesh`; a mesh of more than one shard
+  * the mesh is a one-device `data_mesh`; a mesh of more than one shard
     raises (multi-GPU training is ROADMAP queue 1, item 5), so the batch and every
     parameter live whole on the mesh's device;
   * parameters are `MiniLMEncoder`'s state_dict (torch names, weights [out, in]);
@@ -34,6 +34,7 @@ from torch.func import functional_call
 
 from wax_tpu_torch.embed.minilm import MiniLMEncoder, flax_leaf, mean_pool
 from wax_tpu_torch.parallel.mesh import Mesh, corpus_shards, data_mesh
+from wax_tpu_torch.utils.device import resolve_device
 
 __all__ = ["AdamWState", "TrainState", "Trainer", "contrastive_loss"]
 
@@ -76,7 +77,7 @@ def _checkpoint_order(names) -> list[str]:
 
 
 class Trainer:
-    """Contrastive trainer for the MiniLM encoder on the one-device mesh (None: the
+    """Contrastive trainer for the MiniLM encoder on a one-device mesh (None: the
     current CUDA device, which raises without one)."""
 
     def __init__(
@@ -86,7 +87,7 @@ class Trainer:
         learning_rate: float = 2e-5,
         temperature: float = 0.05,
     ):
-        mesh = mesh if mesh is not None else data_mesh()
+        mesh = mesh if mesh is not None else data_mesh(resolve_device(None))
         if corpus_shards(mesh) != 1:
             raise NotImplementedError(
                 "training over more than one device is not ported yet (ROADMAP queue 1, item 5: multi-GPU)"

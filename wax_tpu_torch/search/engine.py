@@ -35,12 +35,13 @@ class HybridSearchEngine:
 
     `vector_preference` picks the engine (`make_vector_engine`): "auto" (default; the
     exact scan below 2,097,152 rows, then an IVF engine of measured recall), "flat",
-    "hnsw" or "ivf", built on `device`; `vector_kwargs` go to it.
+    "hnsw", "ivf" or "sharded" (the flat scan split over `mesh`), built on `device`;
+    `vector_kwargs` go to it.
 
     `lex_postings_budget` caps each term's postings (None exact, "auto" exact below
     256K rows, or an int); a truncated snapshot carries the exact-rescore forward
     index. `lex_sharded` sends the BM25 lane to the sharded program over `mesh`
-    (default: the one-device mesh of `device`).
+    (default: the one-device mesh of `device`). `mesh` must lead on `device`.
     """
 
     def __init__(
@@ -65,9 +66,13 @@ class HybridSearchEngine:
         self.frames = frames if frames is not None else FrameCatalog()
         self.structured_evidence = structured_evidence
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh leads on {mesh.device}, the engine is on {self.device}")
         kw = dict(vector_kwargs or {})
         if vector_preference in ("auto", "flat"):
             kw.setdefault("similarity", similarity)
+        if vector_preference == "sharded" and mesh is not None:
+            kw.setdefault("mesh", mesh)
         kw.setdefault("device", self.device)
         self.vector: VectorEngine = make_vector_engine(vector_preference, dim=dim, **kw)
         self.lex = LexIndexBuilder(postings_budget=lex_postings_budget)

@@ -7,8 +7,9 @@ snapshot's device and returns numpy arrays. `FlatVectorEngine` scans with
 the native builder) and answers by the batched beam search (`ops/beam_search.py`);
 `IVFVectorEngine` probes k-means buckets (`index/ivf.py`, kernel K7);
 `AutoVectorEngine` serves the flat scan below AUTO_ANN_ROWS rows and from there an IVF
-engine whose sampled recall it has measured (it never selects HNSW, as in JAX). The
-mesh-sharded flat engine comes with multi-GPU serving (ROADMAP queue 1, item 5).
+engine whose sampled recall it has measured (it never selects HNSW, as in JAX);
+`ShardedFlatVectorEngine` scans a snapshot split over a device mesh's corpus shards
+(`parallel/sharded_scan.py`).
 
 Top-k is clamped at MAX_TOP_K = 10,000, as in the JAX package.
 """
@@ -35,6 +36,7 @@ __all__ = [
     "FlatVectorEngine",
     "HNSWVectorEngine",
     "IVFVectorEngine",
+    "ShardedFlatVectorEngine",
     "make_vector_engine",
     "MAX_TOP_K",
     "BF16_AUTO_ROWS",
@@ -380,6 +382,59 @@ class IVFVectorEngine(FreshLockOnCopyMixin):
         return fid in self.builder
 
 
+class ShardedFlatVectorEngine(FlatVectorEngine):
+    """Exact scan with the corpus split over a mesh's corpus shards.
+
+    The builder's snapshot is taken once per generation under the lock and laid out
+    over the mesh, shard by shard from the host; queries replicate, each shard scans its rows on its device and the
+    candidates merge on the lead device (`parallel/sharded_scan.py`). `mesh` None
+    takes `data_mesh(device)`: a one-device mesh for a device, one shard per entry of
+    a sequence, every visible CUDA device for None."""
+
+    kind = "sharded"
+
+    def __init__(self, dim: int, similarity: str = Similarity.COSINE, device_dtype="auto", mesh=None,
+                 device=None):
+        from wax_tpu_torch.parallel.mesh import data_mesh
+
+        self.mesh = mesh if mesh is not None else data_mesh(device)
+        if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's lead device {mesh.device}")
+        super().__init__(dim=dim, similarity=similarity, device_dtype=device_dtype, device=self.mesh.device)
+        self._sharded = None
+
+    def snapshot(self):
+        from wax_tpu_torch.parallel.sharded_scan import shard_dense_index
+
+        dtype = self._resolve_dtype()
+        with self._snap_lock:  # concurrent readers must not double-build or shard
+            if self._sharded is None or self._snap_gen != self.builder.generation or self._snap_dtype != dtype:
+                # a host snapshot, each shard's block copied to its device and cast
+                # there: no device holds more than its own shards
+                self._sharded = shard_dense_index(self.builder.snapshot(device="cpu"), self.mesh, dtype=dtype)
+                self._snap_gen = self.builder.generation
+                self._snap_dtype = dtype
+                self.snapshot_count += 1
+            return self._sharded
+
+    def trace(self, snap) -> None:
+        """One B 1 scan on a GIVEN sharded snapshot (see FlatVectorEngine.trace)."""
+        from wax_tpu_torch.parallel.sharded_scan import sharded_flat_scan_topk
+
+        sharded_flat_scan_topk(torch.zeros((1, self.dim)), snap, 1, self.mesh)
+
+    def search(self, queries, k: int):
+        """Top-k (scores, frame_ids) as numpy arrays [B, k] (see FlatVectorEngine)."""
+        from wax_tpu_torch.parallel.sharded_scan import sharded_flat_scan_topk
+
+        k = min(k, MAX_TOP_K)
+        if len(self.builder) == 0:
+            return _empty_result(queries, k)
+        sharded = self.snapshot()
+        vals, fids = sharded_flat_scan_topk(_query_tensor(queries, self.device), sharded, k, self.mesh)
+        return vals.cpu().numpy(), fids.cpu().numpy()
+
+
 AUTO_ANN_ROWS = 2_097_152  # the exact scan serves below this many rows
 AUTO_RECALL_TARGET = 0.95
 _AUTO_NPROBE_LADDER = (8, 16, 32, 64)
@@ -551,8 +606,9 @@ class AutoVectorEngine(FreshLockOnCopyMixin):
 
 def make_vector_engine(preference: str, dim: int, **kw):
     """preference: "auto" (AutoVectorEngine: the exact scan below AUTO_ANN_ROWS, then
-    measured-recall IVF with an exact fallback), "flat", "hnsw" or "ivf"; keyword
-    arguments go to the engine (`device` among them)."""
+    measured-recall IVF with an exact fallback), "flat", "hnsw", "ivf" or "sharded"
+    (ShardedFlatVectorEngine); keyword arguments go to the engine (`device` among them,
+    and `mesh` for "sharded")."""
     if preference == "auto":
         return AutoVectorEngine(dim=dim, **kw)
     if preference == "flat":
@@ -562,5 +618,5 @@ def make_vector_engine(preference: str, dim: int, **kw):
     if preference == "ivf":
         return IVFVectorEngine(dim=dim, **kw)
     if preference == "sharded":
-        raise NotImplementedError("the sharded flat engine is not ported yet (ROADMAP queue 1, item 5: multi-GPU)")
+        return ShardedFlatVectorEngine(dim=dim, **kw)
     raise ValueError(f"unknown vector engine preference {preference!r}")

@@ -1,9 +1,9 @@
 # Copy of wax_tpu/surfaces/mcp_server.py with these changes: `build_server(store_path,
-# device)` passes `device` (None: the current CUDA device, raising without one; "cpu" on
-# request) to the orchestrator, the embedder and the photo/video orchestrators; the XLA
-# compile-cache block is dropped (the port has no compile cache; `warmup` builds the
-# kernels); `_select_embedder` hands the checkpoint directory it finds to the port's
-# MiniLMEmbedder, which reads no environment variable. Keep the two in step.
+# device)` passes `device` (None: the current CUDA device, or every visible one with
+# WAX_TPU_SHARDED_LANES=1; "cpu" or a sequence of devices on request) to the orchestrator,
+# and the lead device to the embedder and the photo/video orchestrators; no XLA compile
+# cache (`warmup` builds the kernels); `_select_embedder` hands the checkpoint directory
+# it finds to the port's MiniLMEmbedder, which reads no environment. Keep the two in step.
 """MCP server: newline-delimited JSON-RPC 2.0 over stdio exposing wax_* tools.
 
 Mirrors the reference's WaxMCPServer (reference: Sources/WaxMCPServer/ —
@@ -28,11 +28,13 @@ import sys
 import traceback
 from pathlib import Path
 
+import torch
+
 from wax_tpu_torch.orchestrator.config import OrchestratorConfig
 from wax_tpu_torch.orchestrator.orchestrator import MemoryOrchestrator
 from wax_tpu_torch.structured.memory import FactValue
 from wax_tpu_torch.types import SearchMode, SearchRequest, TimeRange
-from wax_tpu_torch.utils.device import resolve_device
+from wax_tpu_torch.utils.device import resolve_device, resolve_devices
 from wax_tpu_torch.version import __version__
 
 PROTOCOL_VERSION = "2024-11-05"
@@ -713,7 +715,12 @@ def default_store_path() -> Path:
 
 
 def build_server(store_path: str | Path | None = None, device=None) -> McpServer:
-    device = resolve_device(device)
+    sharded = os.environ.get("WAX_TPU_SHARDED_LANES", "0") == "1"
+    if sharded or not (device is None or isinstance(device, (str, torch.device))):
+        device = resolve_devices(device)  # the mesh's devices; the orchestrator checks the config
+        lead = device[0]
+    else:
+        device = lead = resolve_device(device)
     _check_license()
     structured = os.environ.get("WAX_TPU_FEATURE_STRUCTURED_MEMORY", "1") != "0"
     access = os.environ.get("WAX_TPU_FEATURE_ACCESS_STATS", "1") != "0"
@@ -724,9 +731,6 @@ def build_server(store_path: str | Path | None = None, device=None) -> McpServer
     # slice x data[x tp] mesh (WAX_TPU_MESH_SLICES / WAX_TPU_MESH_TP), and bound
     # device BM25 work on 1M+ corpora (WAX_TPU_POSTINGS_BUDGET=auto|N; candidate
     # truncation only — returned scores stay exact via the forward-index rescore).
-    # The port's orchestrator raises for sharded lanes on the default "auto" vector
-    # engine or on more than one slice or tp (multi-GPU, ROADMAP queue 1, item 5).
-    sharded = os.environ.get("WAX_TPU_SHARDED_LANES", "0") == "1"
     budget_raw = os.environ.get("WAX_TPU_POSTINGS_BUDGET", "")
     budget: int | str | None = None
     if budget_raw:
@@ -742,7 +746,7 @@ def build_server(store_path: str | Path | None = None, device=None) -> McpServer
         # store: WAX_TPU_EMBEDDER_MISMATCH=reindex re-embeds, =ignore keeps stale
         embedder_mismatch=os.environ.get("WAX_TPU_EMBEDDER_MISMATCH", "error"),
     )
-    orch = MemoryOrchestrator(path, _select_embedder(path, device), config=cfg, device=device)
+    orch = MemoryOrchestrator(path, _select_embedder(path, lead), config=cfg, device=device)
     # build and launch the search lanes' kernels in the idle gap before the first
     # tool call, so the first query pays neither the nvcc build nor the first launch
     orch.warmup(background=True)

@@ -6,6 +6,9 @@ Every entry point (`MiniLMEmbedder`, `DenseIndexBuilder.snapshot`,
 raises instead of falling back to the CPU; a CPU run is asked for explicitly with
 `device="cpu"`.
 
+`resolve_devices` does the same for the device meshes of the sharded programs: a
+device, a sequence of devices, or None for every visible CUDA device.
+
 `full_f32_matmul` keeps the port's f32 products in f32 on the card when a process
 turns TF32 on.
 """
@@ -16,7 +19,7 @@ import threading
 
 import torch
 
-__all__ = ["resolve_device", "full_f32_matmul"]
+__all__ = ["resolve_device", "resolve_devices", "full_f32_matmul"]
 
 _f32_lock = threading.Lock()
 _f32_depth = 0
@@ -34,6 +37,31 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """A CUDA device without an index names the current one."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def resolve_devices(device) -> tuple[torch.device, ...]:
+    """`device` as a tuple of torch.devices: a device (or its name) gives one, a
+    sequence gives each in order (repeats allowed: logical shards on one device), and
+    None gives every visible CUDA device, raising RuntimeError when there is none. A
+    sequence that is empty or mixes CPU and CUDA devices raises ValueError."""
+    if device is None:
+        resolve_device(None)  # raises without a card
+        return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    if isinstance(device, (str, torch.device)):
+        return (_indexed(torch.device(device)),)
+    devs = tuple(_indexed(torch.device(d)) for d in device)
+    if not devs:
+        raise ValueError("a device mesh needs at least one device")
+    if len({d.type for d in devs}) != 1 or devs[0].type not in ("cpu", "cuda"):
+        raise ValueError(f"a device mesh holds CPU devices or CUDA devices, not {sorted({d.type for d in devs})}")
+    return devs
 
 
 def full_f32_matmul(fn):
