@@ -173,7 +173,18 @@ Phases, each printing lines tagged with its name:
             ("train_eval" under K1); a checkpoint saved at step 3 and resumed gives the
             uninterrupted run's losses bit for bit under
             torch.use_deterministic_algorithms (ops without a deterministic CUDA form
-            are named, and then held within rtol 1e-5)
+            are named, and then held within rtol 1e-5). Then, from the same init and
+            batches, on data 4 and data 2 x tp 2 (4 distinct cards when present, else
+            4 logical shards of the card): in f32 with TF32 off, 3 steps on each against
+            one device's (losses within rtol 1e-5; leaves within atol 1e-6, the
+            attention key biases and elements whose gradient fell below 1e-6 within the
+            learning rate a step more), the loss and gradients of a step with TF32
+            turned on bit for bit as with it off (one device and data 2 x tp 2), a
+            checkpoint saved on data 2 x tp 2 resumed on one device (rtol 1e-5, 305
+            leaves) and on the same mesh bit for bit; in bf16 on one device and each
+            mesh: the loss at the init against one device's, step ms p50 (CUDA events),
+            busy share and device launches a step, and synchronising calls a step (not
+            more on a mesh than on one device)
   mcp       the MCP server (surfaces/mcp_server.py): a store of the smoke corpus's
             102,400 documents built with HashEmbedder(384) in a process of its own
             beside [train]; build_server in process (the hash embedder kept by
@@ -208,7 +219,9 @@ Phases, each printing lines tagged with its name:
             shard's (scores within rtol 1e-6, ids but for near-ties), its `sharded`
             segment loads on the 2 x 2 mesh and answers bit for bit as it, an added row
             is a new generation the next search finds; B 1 search p50 on 4 shards and
-            on one
+            on one; K8 held against its plain twin at the lane's first call on 4 shards
+            (recorded by `first_call_args`) and timed there, queued ("orch_sharded"
+            under K8 in the kernels line)
 
 Each serving phase sets the launch counts to 0 just before it runs and reads them just
 after; every kernel of its path must have launched. Each profiled window also prints its
@@ -340,12 +353,15 @@ def device_profile(phase: str, fn, iters: int = 3, top: int = 8) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     launched = {kid: n - before[kid] for kid, n in launch_counts().items() if n > before[kid]}
-    events = prof.events()
-    start = min(e.time_range.start for e in events if e.name == mark)
+    # the profiler's raw events: `prof.events()` would build a Python tree of every
+    # host op first, seconds for a window of thousands of launches
+    events = [e for e in prof.profiler.kineto_results.events()
+              if not getattr(e, "is_hidden_event", lambda: False)()]
+    start = min(e.start_ns() for e in events if e.name() == mark) / 1e3
     cuda = [e for e in events
-            if e.device_type == DeviceType.CUDA and e.time_range.start >= start and e.name != mark]
-    timeline = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in cuda)
-    cards = max(1, min(len({e.device_index for e in cuda}), torch.cuda.device_count()))
+            if e.device_type() == DeviceType.CUDA and e.start_ns() / 1e3 >= start and e.name() != mark]
+    timeline = sorted((e.start_ns() / 1e3, e.duration_ns() / 1e3, e.name()) for e in cuda)
+    cards = max(1, min(len({e.device_index() for e in cuda}), torch.cuda.device_count()))
     if not timeline:
         log(phase, f"profile: no device time recorded over {wall_ms:.3f} ms of wall time (not measured)")
         return {"launched": launched, "recorded": None, "events": None, "busy": None}
@@ -1122,15 +1138,16 @@ def serve_engine_batch(engine, texts, qv, mode, timings=None):
 
 @contextlib.contextmanager
 def first_call_args(module, name: str, seen: dict):
-    """Within the block, record the arguments of the first call of `module.name` in
-    seen[name] and the number of its calls in seen[name + " calls"] (the call itself
-    runs unchanged)."""
+    """Within the block, record the positional arguments of the first call of
+    `module.name` in seen[name], its keyword arguments in seen[name + " kwargs"] and the
+    number of its calls in seen[name + " calls"] (the call itself runs unchanged)."""
     fn = getattr(module, name)
 
-    def recorded(*args):
+    def recorded(*args, **kwargs):
         seen.setdefault(name, args)
+        seen.setdefault(name + " kwargs", kwargs)
         seen[name + " calls"] = seen.get(name + " calls", 0) + 1
-        return fn(*args)
+        return fn(*args, **kwargs)
 
     setattr(module, name, recorded)
     try:
@@ -1665,6 +1682,51 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20, 
 # ---------------------------------------------------------------------------- exact_30k
 
 
+def _k8_bound(tids, offs, idf, q2: int, w2: int, sel: int) -> tuple:
+    """(bound ms, bound_by, postings read, bytes written) of one K8 call: each posting
+    its window holds read once (row and weight), the term ids, each slot's offsets and
+    idf, and the output plane (sel 0) or its top `sel` per slot position written."""
+    from wax_tpu_torch.ops import bm25_candidates_pallas as k8
+
+    b, q = tids.shape
+    _, eff, _, _, _ = k8._slots(tids, offs, idf, q2, w2)
+    n_read = int(eff.sum())
+    out_bytes = b * (q2 * w2 if sel == 0 else sel * 1024) * 8
+    return (*bound(n_read * 8 + b * q * 4 + b * q2 * 12 + out_bytes, 2 * n_read, "fp32"), n_read, out_bytes)
+
+
+def _k8_call_case(phase: str, args: tuple, kwargs: dict) -> dict:
+    """K8 at the arguments a path passed it (recorded by `first_call_args`): bit-equal
+    to its plain twin, kernel and plain times queued behind a sleep kernel, the bound."""
+    import torch
+
+    from wax_tpu_torch.ops import bm25_candidates_pallas as k8
+
+    tids, rows, wn, offs, idf = args
+    mode, sel = kwargs.get("mode", "any"), kwargs.get("sel", 0)
+    q2, w2 = 2, k8.dma_window(int(kwargs["max_df"]))
+    while q2 < tids.shape[1]:
+        q2 *= 2
+
+    def run_kernel():
+        return k8.candidate_scores_pallas(*args, **kwargs)
+
+    def run_plain():
+        return k8._candidate_scores_plain(tids.to(torch.int32), rows, wn, offs, idf, q2, w2, mode, sel)
+
+    check(all(torch.equal(x, y) for x, y in zip(run_kernel(), run_plain())),
+          f"{phase}: K8 differs from its plain twin at the lane's arguments")
+    ms, plain_ms = queued_ms(run_kernel), queued_ms(run_plain, iters=10)
+    bound_ms, bound_by, n_read, out_bytes = _k8_bound(tids, offs, idf, q2, w2, sel)
+    rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "max_abs_err": 0.0, "shape": f"B {tids.shape[0]} x Q {tids.shape[1]} (Q2 {q2} x W2 {w2}), "
+                                         f"{rows.numel()} postings, mode {mode}, sel {sel}"}
+    log(phase, f"K8 at the lane's first call ({rec['shape']}, on {rows.device}): bit-equal to its plain twin; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (each queued behind a sleep kernel, CUDA events), bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {n_read} postings read, {out_bytes} bytes written)")
+    return rec
+
+
 def _k8_cases(lex, tids, results):
     """K8 against its plain twin at this path's inputs (the lane's postings and one
     serving batch's term ids), sel 0 and 3, every mode, on the path's weights and on
@@ -1693,16 +1755,14 @@ def _k8_cases(lex, tids, results):
                 del got, want
         log("exact_30k", f"K8 [{b} queries x Q2 {q2} x W2 {w2}] bit-equal to its plain twin on the {data} "
             f"weights, modes any/all/count, sel 0 and 3")
-    _, eff, _, _, _ = k8._slots(tids, offs, idf, q2, w2)
-    n_read = int(eff.sum())
     t = {}
     for sel in (0, 3):
-        out_bytes = b * (q2 * w2 if sel == 0 else sel * 1024) * 8
         t[sel] = (cuda_ms(lambda: k8.candidate_scores_pallas(tids, rows, wn, offs, idf, max_df=max_df, sel=sel)),
                   cuda_ms(lambda: k8._candidate_scores_plain(tids, rows, wn, offs, idf, q2, w2, "any", sel), iters=5),
-                  bound(n_read * 8 + b * q * 4 + b * q2 * 12 + out_bytes, 2 * n_read, "fp32"))
+                  _k8_bound(tids, offs, idf, q2, w2, sel))
         log("exact_30k", f"K8 sel {sel} (`any`): {t[sel][0]:.4f} ms, plain {t[sel][1]:.4f} ms, bound "
-            f"{t[sel][2][0]:.4f} ms ({t[sel][2][1]}: {n_read} postings read, {out_bytes / 1e9:.4f} GB written)")
+            f"{t[sel][2][0]:.4f} ms ({t[sel][2][1]}: {t[sel][2][2]} postings read, {t[sel][2][3] / 1e9:.4f} GB "
+            "written)")
     results["K8"] = dict(max_abs_err=0.0, ms=t[0][0], plain_ms=t[0][1], library_ms=None, bound_ms=t[0][2][0],
                          bound_by=t[0][2][1])
 
@@ -3661,10 +3721,8 @@ def train_phase(dev, seed: int, results: dict, tmp: Path) -> dict:
     bert_init(model, seed)
     init = {n: t.detach().clone() for n, t in model.state_dict().items()}
     trainer = Trainer(model, data_mesh(dev), learning_rate=TRAIN_LR)
-    rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_pairs(rng, TRAIN_BATCH, cfg.vocab_size).items()}
-               for _ in range(TRAIN_STEPS)]
+    batches = train_batches(seed, TRAIN_STEPS, cfg.vocab_size, dev)
     held = {k: torch.from_numpy(v).to(dev)
             for k, v in synth_pairs(np.random.default_rng(seed + 1), N_EVAL_DOCS, cfg.vocab_size).items()}
     log(phase, f"MiniLMConfig() ({cfg.layers} layers, hidden {cfg.hidden}, {cfg.heads} heads, intermediate "
@@ -3775,9 +3833,210 @@ def train_phase(dev, seed: int, results: dict, tmp: Path) -> dict:
     log(phase, f"resume under torch.use_deterministic_algorithms(True): saved at step {RESUME_AT} "
         f"({ck.stat().st_size} bytes, 305 leaves), {RESUME_STEPS} steps resumed: losses {resumed} "
         f"{'==' if resumed == cont else '!='} the uninterrupted run's, parameters bit-equal {same_params}")
-    log(phase, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds "
-        f"{time.perf_counter() - t_phase:.1f}")
+    t_mesh = time.perf_counter()
+    meshes, how = train_meshes(dev)
+    train_mesh_f32(dev, cfg, init, batches, meshes, how, tmp)
+    train_mesh_bf16(dev, cfg, init, batches, meshes, how)
+    log(phase, f"sharded steps {time.perf_counter() - t_mesh:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase seconds {time.perf_counter() - t_phase:.1f}")
     return {"K1": launched["K1"]}
+
+
+TRAIN_MESH_STEPS = 3  # f32 steps on each mesh against one device's, then as many after the resume
+TRAIN_MESH_TIMED = 10  # bf16 steps timed on each mesh
+# A gradient element below this at some step is rounding noise against Adam's eps 1e-8:
+# Adam moves it by up to the learning rate whatever its size, so two summation orders
+# move it apart by up to that (the attention key biases' case, element by element)
+GRAD_NOISE_FLOOR = 1e-6
+
+
+def train_batches(seed: int, n: int, vocab: int, dev) -> list:
+    """[train]'s first n batches of TRAIN_BATCH pairs, on `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in synth_pairs(rng, TRAIN_BATCH, vocab).items()}
+            for _ in range(n)]
+
+
+def train_meshes(dev):
+    """([(label, mesh)], what they run on): [train]'s sharded meshes, data 4 and data 2
+    x tp 2, over `mesh_devices(dev)`."""
+    from wax_tpu_torch.parallel.mesh import data_mesh, make_mesh
+
+    devs, how = mesh_devices(dev)
+    return [("data 4", data_mesh(devs)), ("data 2 x tp 2", make_mesh(devs, tp=2))], how
+
+
+def _train_steps(trainer, state, batches):
+    losses = []
+    for b in batches:
+        state, loss = trainer.step(state, b)
+        losses.append(float(loss))
+    return state, losses
+
+
+def _leaves_near(what: str, params: dict, ref: dict, steps: int, noise: dict) -> tuple:
+    """Leaves after `steps` steps against a reference run's at the CPU tests' bounds:
+    atol 1e-6, plus the learning rate a step on the attention key biases (their
+    gradient is zero in exact arithmetic) and on each element whose reference gradient
+    fell below GRAD_NOISE_FLOOR at some step (`noise`: masks by leaf). Returns (the
+    largest difference of the other elements, the elements past 1e-6 within the wider
+    bound)."""
+    import torch
+
+    worst, wide = 0.0, 0
+    for n, p in params.items():
+        mask = torch.ones_like(p, dtype=torch.bool) if n.endswith("attention.key.bias") else noise[n]
+        err = (p - ref[n]).abs()
+        loose = float(err[mask].max()) if bool(mask.any()) else 0.0
+        tight = float(err[~mask].max()) if bool((~mask).any()) else 0.0
+        check(tight <= 1e-6 and loose <= 1e-6 + 2 * steps * TRAIN_LR,
+              f"train: {what}: leaf {n} differs by {tight:.3g} (bound 1e-6), by {loose:.3g} where its gradient is "
+              f"noise (bound {1e-6 + 2 * steps * TRAIN_LR:.3g})")
+        worst, wide = max(worst, tight), wide + int((err[mask] > 1e-6).sum())
+    return worst, wide
+
+
+def train_mesh_f32(dev, cfg, init, batches, meshes, how, tmp: Path) -> None:
+    """[train]'s sharded checks in f32 compute with TF32 off, from [train]'s init and
+    batches, under torch.use_deterministic_algorithms: TRAIN_MESH_STEPS steps on each
+    mesh against one device's (losses within rtol 1e-5, leaves within the CPU tests'
+    bounds); the loss and gradients of one step with TF32 turned on, bit for bit as
+    with it off, on one device and on data 2 x tp 2; a checkpoint saved on data 2 x tp
+    2 resumed on one device (losses within rtol 1e-5) and on the same mesh (bit for
+    bit)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.embed.minilm import MiniLMEncoder
+    from wax_tpu_torch.parallel.mesh import data_mesh
+    from wax_tpu_torch.parallel.train import Trainer
+
+    phase = "train"
+    t0 = time.perf_counter()
+    model = MiniLMEncoder(cfg, dtype=torch.float32)
+    one = Trainer(model, data_mesh(dev), learning_rate=TRAIN_LR)
+    first, after = batches[:TRAIN_MESH_STEPS], batches[TRAIN_MESH_STEPS : 2 * TRAIN_MESH_STEPS]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ref, ref_losses, noise = one.init_state(init), [], {}
+            for b in first:
+                for n, g in one.loss_and_grads(ref.params, b)[1].items():
+                    noise[n] = noise.get(n, False) | (g.abs() < GRAD_NOISE_FLOOR)
+                ref, loss = one.step(ref, b)
+                ref_losses.append(float(loss))
+            sharded = {}
+            for label, mesh in meshes:
+                t = Trainer(model, mesh, learning_rate=TRAIN_LR)
+                s, losses = _train_steps(t, t.init_state(init), first)
+                rel = float(np.max(np.abs(np.subtract(losses, ref_losses)) / np.abs(ref_losses)))
+                check(rel <= 1e-5, f"{phase}: f32 losses on {label} {losses} against one device's {ref_losses}")
+                worst, wide = _leaves_near(f"f32 {label} after {TRAIN_MESH_STEPS} steps", s.params, ref.params,
+                                           TRAIN_MESH_STEPS, noise)
+                log(phase, f"f32 {label} ({how}; mesh {mesh.axis_names} {mesh.axis_sizes}), {TRAIN_MESH_STEPS} "
+                    f"steps: losses {losses} against one device's {ref_losses} (largest relative gap {rel:.3g}, "
+                    f"bound 1e-5); leaves within atol 1e-6 (largest gap {worst:.3g}) but {wide} elements of the "
+                    f"attention key biases or of gradient below {GRAD_NOISE_FLOOR:g} at some step, within the "
+                    f"learning rate a step more")
+                sharded[label] = (t, s)
+            for label, t in (("one device", one), ("data 2 x tp 2", sharded["data 2 x tp 2"][0])):
+                params = t.init_state(init).params
+                off = t.loss_and_grads(params, batches[0])
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    on = t.loss_and_grads(params, batches[0])
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                grads_equal = all(torch.equal(on[1][n], off[1][n]) for n in on[1])
+                check(torch.equal(on[0], off[0]) and grads_equal, f"{phase}: f32 on {label}: TF32 on gives loss "
+                      f"{float(on[0])!r} against {float(off[0])!r} off (gradients equal: {grads_equal})")
+                log(phase, f"f32 on {label} with torch.backends.cuda.matmul.allow_tf32 = True: loss {float(on[0])!r} "
+                    f"and every gradient bit for bit as with it off")
+            t22, s22 = sharded["data 2 x tp 2"]
+            ck = tmp / "train_mesh_ck.npz"
+            t22.save_checkpoint(s22, ck)
+            cont_state, cont = _train_steps(t22, s22, after)
+            _, on_one = _train_steps(one, one.load_checkpoint(one.init_state(init), ck), after)
+            again_state, again = _train_steps(t22, t22.load_checkpoint(t22.init_state(init), ck), after)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    with np.load(ck) as data:
+        n_leaves = len(data.files)
+    check(n_leaves == 305, f"{phase}: the data 2 x tp 2 checkpoint holds {n_leaves} leaves, not 305")
+    rel = float(np.max(np.abs(np.subtract(on_one, cont)) / np.abs(cont)))
+    check(rel <= 1e-5, f"{phase}: resumed on one device {on_one} against data 2 x tp 2's {cont}")
+    nondet = sorted({str(w.message).split(" does not have")[0] for w in caught if "deterministic" in str(w.message)})
+    same = again == cont and all(torch.equal(again_state.params[n], cont_state.params[n]) for n in cont_state.params)
+    check(same or bool(nondet), f"{phase}: resumed on data 2 x tp 2 {again} differs from the uninterrupted {cont}")
+    log(phase, f"f32 checkpoint saved on data 2 x tp 2 at step {TRAIN_MESH_STEPS} ({n_leaves} leaves): resumed on "
+        f"one device {on_one} against the uninterrupted {cont} (largest relative gap {rel:.3g}, bound 1e-5); on "
+        f"data 2 x tp 2 under torch.use_deterministic_algorithms(True): {again}, bit for bit {same}"
+        + (f"; ops without a deterministic CUDA form: {nondet}" if nondet else "")
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def train_mesh_bf16(dev, cfg, init, batches, meshes, how) -> dict:
+    """[train]'s sharded steps in bf16 compute, from [train]'s init and batches, on one
+    device and on each mesh: the loss at the init (the first step's) against one
+    device's, step ms p50 (median of TRAIN_MESH_TIMED steps, CUDA events), busy share
+    and device launches a step over 3 profiled steps (torch.profiler), and synchronising
+    calls a step, which must not grow with the shard count."""
+    import itertools
+
+    import torch
+
+    from wax_tpu_torch.embed.minilm import MiniLMEncoder
+    from wax_tpu_torch.parallel.mesh import data_mesh
+    from wax_tpu_torch.parallel.train import Trainer
+
+    phase = "train"
+    model = MiniLMEncoder(cfg, dtype=torch.bfloat16)
+    out = {}
+    for label, mesh in [("one device", data_mesh(dev))] + list(meshes):
+        t0 = time.perf_counter()
+        t = Trainer(model, mesh, learning_rate=TRAIN_LR)
+        state, loss0 = t.step(t.init_state(init), batches[0])
+        box, loss0 = [state], float(loss0)
+        feed = itertools.cycle(batches[1:8])
+
+        def step():
+            box[0] = t.step(box[0], next(feed))[0]
+
+        ms = median_call_ms(step, iters=TRAIN_MESH_TIMED, warmup=1)
+        prof = device_profile(phase, step, iters=3)
+        n_sync, msgs = sync_calls(step)
+        gap = abs(loss0 - out["one device"]["loss0"]) / out["one device"]["loss0"] if out else 0.0
+        launches = None if prof["events"] is None else prof["events"] / 3
+        out[label] = {"loss0": loss0, "ms": ms, "busy": prof["busy"], "launches": launches, "sync": n_sync}
+        busy = "not measured" if prof["busy"] is None else f"{100 * prof['busy']:.1f}%"
+        log(phase, f"bf16 {label} ({'the card' if label == 'one device' else how}): loss at the init {loss0!r} "
+            f"(relative gap to one device's {gap:.3g}); step ms p50 {ms:.3f} (median of {TRAIN_MESH_TIMED}, CUDA "
+            f"events); busy {busy}; device launches a step {launches}; synchronising calls a step {n_sync}"
+            + (f" {msgs}" if msgs else "") + f"; {time.perf_counter() - t0:.1f} s")
+    for label, _ in meshes:
+        check(out[label]["sync"] <= out["one device"]["sync"], f"{phase}: {label} makes {out[label]['sync']} "
+              f"synchronising calls a step, one device {out['one device']['sync']}")
+    return out
+
+
+def train_sharded_phase(dev, seed: int) -> dict:
+    """[train]'s bf16 sharded steps alone (scripts/sharded_phases.py): BERT's init from
+    the seed and [train]'s first 8 batches."""
+    import torch
+
+    from wax_tpu_torch.embed.minilm import MiniLMConfig, MiniLMEncoder
+
+    cfg = MiniLMConfig()
+    model = MiniLMEncoder(cfg, dtype=torch.bfloat16)
+    bert_init(model, seed)
+    meshes, how = train_meshes(dev)
+    return train_mesh_bf16(dev, cfg, model.state_dict(), train_batches(seed, 8, cfg.vocab_size, dev), meshes, how)
 
 
 # --------------------------------------------------------------------------------- mcp
@@ -4113,7 +4372,7 @@ def bm25_lane_as_on_card():
         sh._resolve_lex_backend = real
 
 
-def orch_sharded_phase(dev, seed: int, path: Path) -> dict:
+def orch_sharded_phase(dev, seed: int, path: Path, results: dict) -> dict:
     """[orch_sharded]: [mcp]'s flushed store (102,400 documents and the session's notes,
     HashEmbedder(384), exact postings) reopened read-only as
     OrchestratorConfig(sharded_lanes=True) over 4 shards, then with mesh_slices=2:
@@ -4121,12 +4380,14 @@ def orch_sharded_phase(dev, seed: int, path: Path) -> dict:
     shard; the store's `auto` vector segment keeps its engine, K1 at B 1 on the lead
     card); the two-level answers equal the flat mesh's, the BM25 lane the unsharded
     reopen's, and the fused top-10 a CPU orchestrator's of the same config over the
-    same file (gated at ORCH_FUSED_FLOOR). Returns the launches of the served calls."""
+    same file (gated at ORCH_FUSED_FLOOR); K8 held and timed at the lane's first call on
+    4 shards ("orch_sharded" under K8). Returns the launches of the served calls."""
     import numpy as np
     import torch
 
     from wax_tpu_torch.embed.hash_embedder import HashEmbedder
     from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
+    from wax_tpu_torch.parallel import sharded_hybrid
     import wax_tpu_torch.search.unified as unified
     from wax_tpu_torch.search import engine_cache
     from wax_tpu_torch.types import SearchRequest
@@ -4139,7 +4400,7 @@ def orch_sharded_phase(dev, seed: int, path: Path) -> dict:
     emb = HashEmbedder(384)
     n = N_ORCH_SHARDED
     reqs = [SearchRequest(query=q, top_k=10, embedding=emb.embed(q)) for q in queries[2][:64]]
-    out = {}
+    out, k8_args = {}, {}
     total = {kid: 0 for kid in KERNEL_IDS}
     for label, cfg in (("4 shards", OrchestratorConfig(sharded_lanes=True)),
                        ("2 x 2", OrchestratorConfig(sharded_lanes=True, mesh_slices=2))):
@@ -4164,18 +4425,19 @@ def orch_sharded_phase(dev, seed: int, path: Path) -> dict:
 
             unified.sharded_bm25_topk = counted
             try:
-                for i in range(n):
-                    t1 = time.perf_counter()
-                    resp = o.search(SearchRequest(query=queries[0][i], top_k=10))
-                    torch.cuda.synchronize()
-                    lat["search"].append((time.perf_counter() - t1) * 1e3)
-                    check(len(resp.hits) == 10, f"{phase} {label}: search {queries[0][i]!r} gave {len(resp.hits)} "
-                          "hits")
-                    t1 = time.perf_counter()
-                    ctx = o.recall(queries[1][i])
-                    torch.cuda.synchronize()
-                    lat["recall"].append((time.perf_counter() - t1) * 1e3)
-                    check(ctx.items, f"{phase} {label}: recall {queries[1][i]!r} found nothing")
+                with first_call_args(sharded_hybrid, "candidate_scores_pallas", k8_args):
+                    for i in range(n):
+                        t1 = time.perf_counter()
+                        resp = o.search(SearchRequest(query=queries[0][i], top_k=10))
+                        torch.cuda.synchronize()
+                        lat["search"].append((time.perf_counter() - t1) * 1e3)
+                        check(len(resp.hits) == 10, f"{phase} {label}: search {queries[0][i]!r} gave {len(resp.hits)} "
+                              "hits")
+                        t1 = time.perf_counter()
+                        ctx = o.recall(queries[1][i])
+                        torch.cuda.synchronize()
+                        lat["recall"].append((time.perf_counter() - t1) * 1e3)
+                        check(ctx.items, f"{phase} {label}: recall {queries[1][i]!r} found nothing")
             finally:
                 unified.sharded_bm25_topk = real
             launches = launch_counts()
@@ -4196,6 +4458,8 @@ def orch_sharded_phase(dev, seed: int, path: Path) -> dict:
         finally:
             o.close()
     engine_cache.clear()
+    results["K8"]["orch_sharded"] = _k8_call_case(phase, k8_args["candidate_scores_pallas"],
+                                                  k8_args["candidate_scores_pallas kwargs"])
     flat, two = out["4 shards"], out["2 x 2"]
     check(all(_hit_keys(a) == _hit_keys(c) for a, c in zip(flat[0], two[0])) and flat[1] == two[1]
           and flat[2] == two[2], f"{phase}: the 2 x 2 mesh answers differently from the flat 4-shard mesh")
@@ -4394,7 +4658,7 @@ def _main_phases(args, dev, smi, t_start, lex_job) -> int:
         torch.cuda.empty_cache()
         path_p = mcp_phase(dev, args.seed, tmp, store)
         torch.cuda.empty_cache()
-        path_os = orch_sharded_phase(dev, args.seed, store[0])
+        path_os = orch_sharded_phase(dev, args.seed, store[0], results)
     finally:
         if store is not None and store[1].poll() is None:
             store[1].kill()
@@ -4431,7 +4695,8 @@ def _main_phases(args, dev, smi, t_start, lex_job) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{key: r[key] for key in ("x768", "rows_10240", "engine_1m_l2_64", "hybrid_1m_wide", "ivf_1m", "auto_2m",
-                                       "auto_2m_flat", "orch_b1", "orch_maint", "hnsw_100k", "train_eval") if key in r},
+                                       "auto_2m_flat", "orch_b1", "orch_maint", "hnsw_100k", "train_eval",
+                                       "orch_sharded") if key in r},
         })
     log("done", f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,5 +1,6 @@
-"""Kernels K1-K9 on the GPU against their plain torch twins, and the HNSW beam search
-on the card against its CPU run (needs a card).
+"""Kernels K1-K9 on the GPU against their plain torch twins, the HNSW beam search on
+the card against its CPU run, and the f32 paths (scans, IVF, the trainer) with TF32
+turned on (needs a card).
 
 CUDA kernels have no CPU mode, so these tests skip without a CUDA device. They import
 no JAX, so they also run on a machine that has none; run them there with
@@ -889,3 +890,43 @@ def test_trainer_on_the_card_equals_cpu(dev, tmp_path):
     assert int(resumed.step) == 3
     _, next_cpu = cpu.step(resumed, batches[3])
     np.testing.assert_allclose(float(next_cpu), float(next_card), rtol=1e-4)
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_trainer_f32_holds_with_tf32_on(dev, tp):
+    """With TF32 turned on process-wide, the encoder's f32 forward and the trainer's f32
+    loss and gradients on 4 logical shards of the card (data 4, or data 2 x tp 2) are
+    bit for bit as with it off (the pin: `utils.device.f32_products`), and agree with
+    the same mesh of CPU shards: hidden states within 1e-5, the loss within rtol 1e-6."""
+    from wax_tpu_torch.embed.minilm import MiniLMConfig, MiniLMEncoder
+    from wax_tpu_torch.parallel.mesh import make_mesh
+    from wax_tpu_torch.parallel.train import Trainer
+
+    cfg = MiniLMConfig(hidden=64, layers=2, heads=4, intermediate=128, vocab_size=1000, max_positions=64)
+    model = MiniLMEncoder(cfg, dtype=torch.float32)
+    model.init_random(torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    batch = {k: torch.randint(1, 1000, (16, 24), generator=g, dtype=torch.int32) for k in ("q_ids", "d_ids")}
+    batch.update({k: (torch.arange(24)[None, :] < torch.randint(4, 25, (16, 1), generator=g)).to(torch.int32)
+                  for k in ("q_mask", "d_mask")})
+
+    def run(device):
+        on = {k: v.to(device) for k, v in batch.items()}
+        model.to(device)
+        with torch.no_grad():
+            hidden = model(on["q_ids"], on["q_mask"])
+        trainer = Trainer(model, make_mesh([device] * 4, tp=tp))
+        loss, grads = trainer.loss_and_grads(trainer.init_state(model.state_dict()).params, on)
+        return hidden.cpu(), loss.cpu(), {n: t.cpu() for n, t in grads.items()}
+
+    off = run(dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = run(dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    assert all(torch.equal(on[2][n], off[2][n]) for n in off[2])
+    hidden, loss, _ = run(torch.device("cpu"))
+    assert float((off[0] - hidden).abs().max()) <= 1e-5
+    np.testing.assert_allclose(float(off[1]), float(loss), rtol=1e-6)

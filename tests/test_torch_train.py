@@ -74,7 +74,7 @@ def test_loss_at_step_zero(setup):
     model, params, batch = setup
     jl = float(jax_loss(params, model, {k: jnp.asarray(v) for k, v in batch.items()}))
     trainer, state = _port(params)
-    tl = float(contrastive_loss(state.params, trainer.model, trainer.shard_batch(batch)))
+    tl = float(contrastive_loss(state.params, trainer.model, trainer.shard_batch(batch)[0]))
     np.testing.assert_allclose(tl, jl, rtol=1e-6)
 
 
@@ -84,7 +84,7 @@ def test_gradients_agree(setup):
     trainer, state = _port(params)
     names = list(state.params)
     leaves = [state.params[n].detach().requires_grad_() for n in names]
-    loss = contrastive_loss(dict(zip(names, leaves)), trainer.model, trainer.shard_batch(batch))
+    loss = contrastive_loss(dict(zip(names, leaves)), trainer.model, trainer.shard_batch(batch)[0])
     tg = dict(zip(names, torch.autograd.grad(loss, leaves)))
     assert set(tg) == set(jg)
     for n in names:
@@ -215,14 +215,14 @@ def test_params_to_flax_inverts_params_from_flax(setup):
     assert all(torch.equal(sd[n], again[n]) for n in sd)
 
 
-def test_more_than_one_shard_raises():
-    class TwoShards(Mesh):
-        @property
-        def corpus_shards(self) -> int:
-            return 2
-
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Trainer(tm.MiniLMEncoder(tm.MiniLMConfig(**SMALL)), TwoShards(torch.device("cpu")))
+def test_batch_that_shards_do_not_divide_raises(setup):
+    """The trainer takes any mesh; the batch's rows must split evenly over its corpus
+    shards, and the error names their count."""
+    _, params, batch = setup
+    trainer = Trainer(tm.MiniLMEncoder(tm.MiniLMConfig(**SMALL), dtype=torch.float32), Mesh(["cpu"] * 3))
+    state = trainer.init_state(tm.params_from_flax(_numpy(params)))
+    with pytest.raises(ValueError, match="16 rows do not split over 3 shards"):
+        trainer.step(state, batch)
 
 
 def test_full_width_checkpoint_has_305_leaves(tmp_path):

@@ -10,7 +10,11 @@ parameters are stored in f32 and dense layers run in the compute dtype (bf16 by
 default); the embedding sum is taken in f32 before the embedding LayerNorm; LayerNorm
 statistics are f32 with eps 1e-12; attention is plain tensor ops (einsum, scale and
 the -1e9 mask bias in the compute dtype, softmax), not a fused attention operator;
-GELU is exact; mean pooling divides in the hidden dtype before casting to f32.
+GELU is exact; mean pooling divides in the hidden dtype before casting to f32. In f32
+compute the products stay f32 on the card whatever the process's TF32 setting. The
+layers are built from `dense`, `layer_norm` and `attend`, which the trainer also calls
+on each device's slices of the weights; `param_partition_spec` gives those slices,
+JAX's tensor-parallel layout.
 
 Without a checkpoint the weights are random, drawn from a seeded torch.Generator:
 dense kernels N(0, 1/fan_in), token embeddings N(0, 1), position and type embeddings
@@ -30,7 +34,7 @@ from torch import nn
 
 from wax_tpu_torch.embed.provider import ExecutionMode
 from wax_tpu_torch.text.wordpiece import WordPieceTokenizer
-from wax_tpu_torch.utils.device import resolve_device
+from wax_tpu_torch.utils.device import f32_products, resolve_device
 
 __all__ = [
     "MiniLMConfig",
@@ -40,6 +44,11 @@ __all__ = [
     "params_from_flax",
     "params_to_flax",
     "flax_leaf",
+    "param_partition_spec",
+    "tp_split_dim",
+    "dense",
+    "layer_norm",
+    "attend",
     "load_hf_checkpoint",
 ]
 
@@ -61,9 +70,40 @@ class MiniLMConfig:
             setattr(self, k, v)
 
 
+def dense(x, weight, bias=None):
+    """flax `nn.Dense(dtype=..., param_dtype=f32)` on a weight [out, in]: the f32
+    parameters cast to the input's dtype, the product computed in it."""
+    return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+def layer_norm(x, weight, bias, eps: float, dtype: torch.dtype):
+    """flax `nn.LayerNorm`: f32 statistics (E[x^2] - E[x]^2, clipped at 0), output in
+    `dtype`."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + eps) * weight)
+    return (y + bias).to(dtype)
+
+
+def attend(q, k, v, mask, heads: int, scale: float):
+    """Self-attention of q, k, v [B, L, heads * head_dim] over `heads` heads of
+    consecutive features: scores divided by `scale`, the -1e9 bias of padded keys,
+    softmax; the context [B, L, heads * head_dim]."""
+    b, n, width = q.shape
+
+    def split(t):
+        return t.reshape(b, n, heads, width // heads)
+
+    scores = torch.einsum("bqhd,bkhd->bhqk", split(q), split(k)) / scale
+    bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(scores.dtype)
+    probs = torch.softmax(scores + bias, dim=-1)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, split(v))
+    return ctx.reshape(b, n, width)
+
+
 class _Dense(nn.Module):
-    """flax `nn.Dense(dtype=..., param_dtype=f32)`: f32 parameters, computed in the
-    input's dtype. `weight` is [out, in] as in `nn.Linear`."""
+    """`dense` over its own parameters; `weight` is [out, in] as in `nn.Linear`."""
 
     def __init__(self, n_in: int, n_out: int):
         super().__init__()
@@ -71,12 +111,11 @@ class _Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n_out))
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return dense(x, self.weight, self.bias)
 
 
 class _LayerNorm(nn.Module):
-    """flax `nn.LayerNorm`: f32 statistics (E[x^2] - E[x]^2, clipped at 0), output in
-    `dtype`."""
+    """`layer_norm` over its own parameters."""
 
     def __init__(self, n: int, eps: float, dtype: torch.dtype):
         super().__init__()
@@ -86,11 +125,7 @@ class _LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return (y + self.bias).to(self.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
 
 
 class _SelfAttention(nn.Module):
@@ -104,18 +139,7 @@ class _SelfAttention(nn.Module):
         self.scale = float(root.to(dtype))
 
     def forward(self, x, mask):
-        cfg = self.cfg
-        head_dim = cfg.hidden // cfg.heads
-
-        def split(t):
-            return t.reshape(t.shape[0], t.shape[1], cfg.heads, head_dim)
-
-        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / self.scale
-        bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9).to(scores.dtype)
-        probs = torch.softmax(scores + bias, dim=-1)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out(ctx.reshape(ctx.shape[0], ctx.shape[1], cfg.hidden))
+        return self.out(attend(self.query(x), self.key(x), self.value(x), mask, self.cfg.heads, self.scale))
 
 
 class _Layer(nn.Module):
@@ -148,14 +172,16 @@ class MiniLMEncoder(nn.Module):
             self.add_module(f"layer_{i}", _Layer(cfg, dtype))
 
     def forward(self, ids, mask):
-        ids = ids.long()
-        pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
-        emb = self.tok_emb(ids) + self.pos_emb(pos)
-        emb = emb + self.type_emb(torch.zeros_like(ids))
-        x = self.emb_ln(emb.to(self.dtype))
-        for i in range(self.cfg.layers):
-            x = getattr(self, f"layer_{i}")(x, mask)
-        return x
+        # f32 compute stays f32 on the card whatever the process's TF32 setting
+        with f32_products(self.dtype == torch.float32 and ids.is_cuda):
+            ids = ids.long()
+            pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+            emb = self.tok_emb(ids) + self.pos_emb(pos)
+            emb = emb + self.type_emb(torch.zeros_like(ids))
+            x = self.emb_ln(emb.to(self.dtype))
+            for i in range(self.cfg.layers):
+                x = getattr(self, f"layer_{i}")(x, mask)
+            return x
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> None:
@@ -219,6 +245,36 @@ def flax_leaf(name: str) -> tuple[tuple[str, ...], bool]:
     if path[-1].endswith("_ln"):
         return (*path, "scale"), False
     return (*path, "kernel"), True
+
+
+def param_partition_spec(state_dict) -> dict[str, tuple]:
+    """The tensor-parallel layout of each state_dict entry over a "tp" mesh axis, as the
+    axes of the JAX package's PartitionSpec for its flax leaf (`flax_leaf`), by JAX's
+    rule on the leaf's path: 2-D leaves under query, key, value or intermediate split
+    their output features, (None, "tp"); leaves ending out/kernel or holding
+    output/kernel split their input features, ("tp", None); every other leaf is
+    replicated, () — the 1-D q/k/v and intermediate biases too."""
+    out = {}
+    for name, val in state_dict.items():
+        joined = "/".join(flax_leaf(name)[0])
+        spec = ()
+        if np.ndim(val) == 2:
+            if any(s in joined for s in ("query", "key", "value", "intermediate")):
+                spec = (None, "tp")
+            elif joined.endswith("out/kernel") or "output/kernel" in joined:
+                spec = ("tp", None)
+        out[name] = spec
+    return out
+
+
+def tp_split_dim(name: str, spec: tuple) -> int | None:
+    """The dimension of the state_dict entry `name` that `spec` (from
+    `param_partition_spec`) splits over "tp", None for a replicated leaf. Dense weights
+    are [out, in], flax's kernels [in, out], so (None, "tp") splits a weight's dim 0."""
+    if "tp" not in spec:
+        return None
+    dim = spec.index("tp")
+    return len(spec) - 1 - dim if flax_leaf(name)[1] else dim
 
 
 def params_to_flax(state_dict) -> dict:

@@ -9,7 +9,8 @@ Python loop onto its device's current stream, with no host synchronisation insid
 loop, so the devices overlap as JAX's shards do.
 
 Corpus shard s (slice-major over the corpus axes) lives on `shard_devices[s]`, the
-shard's first tp device; tp planes replicate the corpus and serve it once. A device
+shard's first tp device; tp planes replicate the corpus and serve it once. The trainer
+splits the encoder's layers over each shard's tp devices (`shard_groups`). A device
 may appear more than once: those are logical shards on one device (JAX's tests put 8
 virtual CPU devices on one host the same way). With no devices given a mesh holds
 every visible CUDA device, as JAX's meshes hold `jax.devices()`, and raises without
@@ -81,6 +82,14 @@ class Mesh:
         """The device of each corpus shard, in corpus order (slice, then data)."""
         return self.devices[:: self.shape.get(MODEL_AXIS, 1)]
 
+    @property
+    def shard_groups(self) -> tuple:
+        """Each corpus shard's tp devices, in corpus order: shard s holds
+        `devices[s * tp : (s + 1) * tp]` (JAX's device order: slice-major, then data,
+        then tp), led by `shard_devices[s]`."""
+        tp = self.shape.get(MODEL_AXIS, 1)
+        return tuple(self.devices[i : i + tp] for i in range(0, len(self.devices), tp))
+
 
 def _device_list(devices) -> tuple:
     """An int n takes the first n visible CUDA devices; anything else goes to
@@ -139,7 +148,9 @@ def corpus_shards(mesh: Mesh) -> int:
 
 def shard_rows(mesh: Mesh, x: torch.Tensor) -> tuple:
     """The leading (row) axis of `x` split into one block per corpus shard, each on
-    its shard's device (a view where `x` is there already)."""
+    its shard's device (a view where `x` is there already): shard s takes rows
+    [s * B / S, (s + 1) * B / S), as JAX's P(corpus_axes, None) places them; B that S
+    does not divide raises ValueError."""
     s = corpus_shards(mesh)
     if x.shape[0] % s:
         raise ValueError(f"{x.shape[0]} rows do not split over {s} shards")

@@ -9,17 +9,18 @@ raises instead of falling back to the CPU; a CPU run is asked for explicitly wit
 `resolve_devices` does the same for the device meshes of the sharded programs: a
 device, a sequence of devices, or None for every visible CUDA device.
 
-`full_f32_matmul` keeps the port's f32 products in f32 on the card when a process
-turns TF32 on.
+`f32_products` (and its decorator form `full_f32_matmul`) keeps the port's f32
+products in f32 on the card when a process turns TF32 on.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
 import torch
 
-__all__ = ["resolve_device", "resolve_devices", "full_f32_matmul"]
+__all__ = ["resolve_device", "resolve_devices", "f32_products", "full_f32_matmul"]
 
 _f32_lock = threading.Lock()
 _f32_depth = 0
@@ -64,32 +65,41 @@ def resolve_devices(device) -> tuple[torch.device, ...]:
     return devs
 
 
-def full_f32_matmul(fn):
-    """Decorator: run `fn`'s f32 matrix products in full f32 whatever the process-wide
+@contextlib.contextmanager
+def f32_products(active: bool = True):
+    """Within the block, f32 matrix products run in full f32 whatever the process-wide
     TF32 setting (`torch.backends.cuda.matmul.allow_tf32`, which a caller may turn on
-    and which makes cuBLAS round f32 operands to TF32's 10-bit mantissa), when one of
-    its tensor arguments lies on a CUDA device; on CPU tensors `fn` runs as it is. The
-    setting is process-wide: the first of overlapping calls (any thread) turns it off,
-    the last restores it, and other threads' f32 products meanwhile also run in f32.
-    Callers must not change `allow_tf32` while such calls can run (an orchestrator
-    serving searches): a setting made meanwhile is undone when the last one ends."""
+    and which makes cuBLAS round f32 operands to TF32's 10-bit mantissa); with `active`
+    false the block runs as it is. The setting is process-wide: the first of
+    overlapping blocks (any thread) turns it off, the last restores it, and other
+    threads' f32 products meanwhile also run in f32. Callers must not change
+    `allow_tf32` while such blocks can run (an orchestrator serving searches): a
+    setting made meanwhile is undone when the last one ends."""
+    if not active:
+        yield
+        return
+    global _f32_depth, _f32_saved
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_depth += 1
+    try:
+        yield
+    finally:
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _f32_saved
+
+
+def full_f32_matmul(fn):
+    """Decorator: run `fn` inside `f32_products` when one of its tensor arguments lies
+    on a CUDA device; on CPU tensors `fn` runs as it is."""
 
     @functools.wraps(fn)
     def pinned(*args, **kwargs):
-        if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kwargs.values())):
+        with f32_products(any(isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kwargs.values()))):
             return fn(*args, **kwargs)
-        global _f32_depth, _f32_saved
-        with _f32_lock:
-            if _f32_depth == 0:
-                _f32_saved = torch.backends.cuda.matmul.allow_tf32
-                torch.backends.cuda.matmul.allow_tf32 = False
-            _f32_depth += 1
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            with _f32_lock:
-                _f32_depth -= 1
-                if _f32_depth == 0:
-                    torch.backends.cuda.matmul.allow_tf32 = _f32_saved
 
     return pinned
