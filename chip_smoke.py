@@ -1714,16 +1714,23 @@ def _k8_call_case(phase: str, args: tuple, kwargs: dict) -> dict:
     def run_plain():
         return k8._candidate_scores_plain(tids.to(torch.int32), rows, wn, offs, idf, q2, w2, mode, sel)
 
-    check(all(torch.equal(x, y) for x, y in zip(run_kernel(), run_plain())),
+    want = run_plain()
+    check(all(torch.equal(x, y) for x, y in zip(run_kernel(), want)),
           f"{phase}: K8 differs from its plain twin at the lane's arguments")
+    check(all(torch.equal(x, y) for x, y in zip(k8.candidate_scores_pallas(*args, **kwargs, split=1), want)),
+          f"{phase}: K8 at one CTA a query differs from its plain twin at the lane's arguments")
+    plan = k8.device_plan(tids.shape[0], q2, w2, sel, rows.device)
     ms, plain_ms = queued_ms(run_kernel), queued_ms(run_plain, iters=10)
     bound_ms, bound_by, n_read, out_bytes = _k8_bound(tids, offs, idf, q2, w2, sel)
     rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-           "max_abs_err": 0.0, "shape": f"B {tids.shape[0]} x Q {tids.shape[1]} (Q2 {q2} x W2 {w2}), "
-                                         f"{rows.numel()} postings, mode {mode}, sel {sel}"}
-    log(phase, f"K8 at the lane's first call ({rec['shape']}, on {rows.device}): bit-equal to its plain twin; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (each queued behind a sleep kernel, CUDA events), bound "
-        f"{bound_ms:.6f} ms ({bound_by}: {n_read} postings read, {out_bytes} bytes written)")
+           "max_abs_err": 0.0, "plan_g": plan["g"],
+           "shape": f"B {tids.shape[0]} x Q {tids.shape[1]} (Q2 {q2} x W2 {w2}), {rows.numel()} postings, "
+                    f"mode {mode}, sel {sel}"}
+    log(phase, f"K8 at the lane's first call ({rec['shape']}, on {rows.device}): bit-equal to its plain twin at "
+        f"the plan's G and at G 1; plan G {plan['g']} CTAs a query ({plan['ctas_per_sm']} CTAs an SM, "
+        f"{plan['sms']} SMs, {plan['smem_bytes']} B shared); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (each "
+        f"queued behind a sleep kernel, CUDA events), bound {bound_ms:.6f} ms ({bound_by}: {n_read} postings read, "
+        f"{out_bytes} bytes written)")
     return rec
 
 
@@ -1755,12 +1762,24 @@ def _k8_cases(lex, tids, results):
                 del got, want
         log("exact_30k", f"K8 [{b} queries x Q2 {q2} x W2 {w2}] bit-equal to its plain twin on the {data} "
             f"weights, modes any/all/count, sel 0 and 3")
+    for sel in (0, 3):  # the same at G 2 and at 1/8 of the batch, where the plan splits each query
+        want = k8._candidate_scores_plain(tids, rows, wn, offs, idf, q2, w2, "any", sel)
+        got = k8.candidate_scores_pallas(tids, rows, wn, offs, idf, max_df=max_df, sel=sel, split=2)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)), f"K8 at G 2 (sel {sel}) differs from its plain twin")
+        part = b // 8
+        got = k8.candidate_scores_pallas(tids[:part], rows, wn, offs, idf, max_df=max_df, sel=sel)
+        check(all(torch.equal(x, y[:part]) for x, y in zip(got, want)),
+              f"K8 at B {part} (sel {sel}) differs from its plain twin")
+        del got, want
     t = {}
     for sel in (0, 3):
         t[sel] = (cuda_ms(lambda: k8.candidate_scores_pallas(tids, rows, wn, offs, idf, max_df=max_df, sel=sel)),
                   cuda_ms(lambda: k8._candidate_scores_plain(tids, rows, wn, offs, idf, q2, w2, "any", sel), iters=5),
                   _k8_bound(tids, offs, idf, q2, w2, sel))
-        log("exact_30k", f"K8 sel {sel} (`any`): {t[sel][0]:.4f} ms, plain {t[sel][1]:.4f} ms, bound "
+        g = k8.device_plan(b, q2, w2, sel, rows.device)["g"]
+        log("exact_30k", f"K8 sel {sel} (`any`, plan G {g}; G 2 and B {b // 8} at G "
+            f"{k8.device_plan(b // 8, q2, w2, sel, rows.device)['g']} also bit-equal): {t[sel][0]:.4f} ms, plain "
+            f"{t[sel][1]:.4f} ms, bound "
             f"{t[sel][2][0]:.4f} ms ({t[sel][2][1]}: {t[sel][2][2]} postings read, {t[sel][2][3] / 1e9:.4f} GB "
             "written)")
     results["K8"] = dict(max_abs_err=0.0, ms=t[0][0], plain_ms=t[0][1], library_ms=None, bound_ms=t[0][2][0],
@@ -4418,9 +4437,11 @@ def orch_sharded_phase(dev, seed: int, path: Path, results: dict) -> dict:
             lat = {"search": [], "recall": []}
             sharded_calls = [0]
             real = unified.sharded_bm25_topk
+            lane_args = []
 
             def counted(*a, **kw):  # the lane's device runs (a query's primary and OR fallback)
                 sharded_calls[0] += 1
+                lane_args[:] = lane_args or [a, kw]
                 return real(*a, **kw)
 
             unified.sharded_bm25_topk = counted
@@ -4442,6 +4463,8 @@ def orch_sharded_phase(dev, seed: int, path: Path, results: dict) -> dict:
                 unified.sharded_bm25_topk = real
             launches = launch_counts()
             runs = sharded_calls[0]
+            if label == "4 shards":  # one lane run's device time by kernel: K8, wide_topk's sorts, the merge
+                device_profile(f"{phase} bm25 lane", lambda: real(*lane_args[0], **lane_args[1]), top=12)
             check(launches["K8"] == N_SHARDS * runs and runs > 0,
                   f"{phase} {label}: K8 launched {launches['K8']} times for {runs} sharded BM25 runs on "
                   f"{N_SHARDS} shards")

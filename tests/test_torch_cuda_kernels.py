@@ -599,34 +599,84 @@ def _postings(rng, n_rows, sizes, exact):
 @pytest.mark.parametrize("sel", [0, 3])
 @pytest.mark.parametrize("mode", ["any", "all", "count"])
 @pytest.mark.parametrize("exact", [True, False])
-def test_k8_candidates_equal_plain(dev, exact, mode, sel):
+@pytest.mark.parametrize("b,split", [(13, None), (1, None), (2, None), (256, None), (13, 1), (1, 1), (2, 7),
+                                     (1, "plan_max"), (13, 512)])
+def test_k8_candidates_equal_plain(dev, exact, mode, sel, b, split):
     """K8 at the auto guard's widest window (W2 32,768 for 16 slots: max_df 31,744),
-    rows over several 8,192-row tiles, a ragged batch with an empty and an all -1
-    query, duplicated ids and tombstoned (weight 0) postings: bit-equal to its twin."""
+    rows over several 8,192-row tiles, batches of 1, 2, 13 and 256 queries (13: ragged,
+    with an empty and an all -1 query, duplicated ids; tombstoned (weight 0) postings)
+    at the plan's G CTAs a query and at forced ones (1, 7, the largest plan, 512):
+    bit-equal to its twin, one launch a call."""
     rng = np.random.default_rng(int(exact) * 10 + sel)
     n_rows, t = 60_000, 40
     sizes = rng.integers(0, 3000, t)
     sizes[:3] = (31_744, 20_000, 9)
     rows, offsets, wn, idf = _postings(rng, n_rows, sizes, exact)
-    tids = rng.integers(0, t, (13, 16)).astype(np.int32)
-    tids[:, :2] = rng.integers(0, 3, (13, 2))
-    tids[rng.random((13, 16)) < 0.2] = -1
+    tids = rng.integers(0, t, (max(b, 13), 16)).astype(np.int32)
+    tids[:, :2] = rng.integers(0, 3, (len(tids), 2))
+    tids[rng.random(tids.shape) < 0.2] = -1
     tids[4] = -1
     tids[5, 1] = tids[5, 0]
     tids[6, 3:] = -1
+    tids = tids[[0, 5, 6, 4, 1, 2, 3, *range(7, len(tids))][:b]]  # B 1 and 2 keep the duplicate and the ragged
     args = [torch.from_numpy(a).to(dev) for a in (rows, wn, offsets, idf)]
     tq = torch.from_numpy(tids).to(dev)
     assert k8.dma_window(31_744) == 32_768
+    if split == "plan_max":
+        split = k8.device_plan(1, 16, 32_768, sel, dev)["g"]
     n8 = k8.K8_LAUNCHES
-    got = k8.candidate_scores_pallas(tq, *args, max_df=31_744, mode=mode, sel=sel)
+    got = k8.candidate_scores_pallas(tq, *args, max_df=31_744, mode=mode, sel=sel, split=split)
     assert k8.K8_LAUNCHES == n8 + 1
     want = k8._candidate_scores_plain(tq, *args, 16, 32_768, mode, sel)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    assert (got[0][4] == -1).all() and ((got[0] >= 0).any() or mode == "all")
-    narrow = k8.candidate_scores_pallas(tq[:, :3].contiguous(), *args, max_df=31_744, mode=mode, sel=sel)
-    for a, b in zip(narrow, k8._candidate_scores_plain(tq[:, :3], *args, 4, 32_768, mode, sel)):
-        assert torch.equal(a, b)
+    for a, c in zip(got, want):
+        assert a.dtype == c.dtype and torch.equal(a, c)
+    assert (got[0] >= 0).any() or mode == "all"
+    if b == 13:
+        assert (got[0][3] == -1).all()
+        narrow = k8.candidate_scores_pallas(tq[:, :3].contiguous(), *args, max_df=31_744, mode=mode, sel=sel,
+                                            split=split)
+        for a, c in zip(narrow, k8._candidate_scores_plain(tq[:, :3], *args, 4, 32_768, mode, sel)):
+            assert torch.equal(a, c)
+    again = k8.candidate_scores_pallas(tq, *args, max_df=31_744, mode=mode, sel=sel, split=split)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))  # the sel merge's tickets were left at zero
+
+
+@pytest.mark.parametrize("sel", [0, 3])
+def test_k8_orch_sharded_shape(dev, sel):
+    """[orch_sharded]'s shard shape: B 1, 16 terms over 25,600 rows, max_df 31,744 (W2
+    32,768, a 4 MiB plane), `all` and `any`, with rows every term holds: bit-equal to
+    the twin at the plan's G and at G 1."""
+    rng = np.random.default_rng(31 + sel)
+    n_rows, t = 25_600, 24
+    sizes = rng.integers(800, 2600, t)
+    rows, offsets, wn, idf = _postings(rng, n_rows, sizes, False)
+    common = np.sort(rng.choice(n_rows, 40, replace=False))
+    for k in range(t):  # 40 rows in every term's slice
+        sl = slice(offsets[k], offsets[k + 1])
+        rows[sl] = np.sort(np.union1d(common, rng.choice(np.setdiff1d(np.arange(n_rows), common),
+                                                         sizes[k] - 40, replace=False)))
+    args = [torch.from_numpy(a).to(dev) for a in (rows, wn, offsets, idf)]
+    tq = torch.from_numpy(rng.choice(t, (1, 16), replace=False).astype(np.int32)).to(dev)
+    plan = k8.device_plan(1, 16, 32_768, sel, dev)
+    assert plan["g"] == k8.launch_plan(1, 16, 32_768, plan["sms"], plan["ctas_per_sm"])["g"] > 1
+    for mode in ("all", "any"):
+        want = k8._candidate_scores_plain(tq, *args, 16, 32_768, mode, sel)
+        for split in (None, 1):
+            got = k8.candidate_scores_pallas(tq, *args, max_df=31_744, mode=mode, sel=sel, split=split)
+            assert all(torch.equal(a, c) for a, c in zip(got, want)), (mode, split)
+        assert (want[0] >= 0).any()
+
+
+def test_k8_launch_plans(dev):
+    """The C plan (`wax_k8_plan`) is `launch_plan` at the card's SMs and CTAs an SM:
+    G fills the card at small B and is 1 once B does."""
+    for b in (1, 2, 13, 64, 131, 132, 256, 4096):
+        for q2, w2 in ((16, 32_768), (4, 2048), (2, 2048), (1024, 2048), (64, 65_536)):
+            for sel in (0, 3):
+                plan = k8.device_plan(b, q2, w2, sel, dev)
+                mirror = k8.launch_plan(b, q2, w2, plan["sms"], plan["ctas_per_sm"])
+                assert {key: plan[key] for key in mirror} == mirror, (b, q2, w2, sel, plan)
+                assert plan["ctas_per_sm"] >= 1 and plan["smem_bytes"] <= 232_448
 
 
 def _tf32_blind_centroids(c: int, d: int) -> torch.Tensor:
@@ -642,7 +692,7 @@ def _tf32_blind_centroids(c: int, d: int) -> torch.Tensor:
 
 
 TF32_PATHS = ["scores_f32", "blockmax16_rescore", "kmeans_assign", "centroid_sums", "probe_selection",
-              "probe_loop_scores", "incremental_placement"]
+              "probe_loop_scores", "incremental_placement", "blockmax16_ties", "k6_twin", "k7_twin"]
 
 
 @pytest.mark.parametrize("path", TF32_PATHS)
@@ -657,7 +707,10 @@ def test_f32_products_hold_with_tf32_on(dev, path):
     (`utils.device.full_f32_matmul`) five of these differed on an H100: scores by
     8.1e-05, centroid sums by 4.55e-05, probe-loop scores by 0.0409, and the assignment
     and placement picked centroid 0 for 1; blockmax16's rescore and probe selection at
-    these shapes held without it."""
+    these shapes held without it. On rows only f32 tells apart, blockmax16's exact
+    rescore and the plain twins of K6 (`_chunk_maxima_plain`) and K7
+    (`_bucket_rescore_plain`) give the same bits with TF32 on as off, and rank row 1
+    first."""
     from wax_tpu_torch.index import ivf as ivfm
     from wax_tpu_torch.search.vector_engines import IVFVectorEngine
 
@@ -685,6 +738,24 @@ def test_f32_products_hold_with_tf32_on(dev, path):
             want = fs._blockmax16_topk(q, emb, bias, 10)
             err = float((got[0].cpu() - want[0]).abs().max())
             assert err <= 1e-5, f"{path}: max |card - CPU| = {err:.3g}"
+        elif path in ("blockmax16_ties", "k6_twin", "k7_twin"):
+            qq, rows, zero = ones[:8].to(dev), cent.to(dev), torch.zeros(c, device=dev)
+            probes = torch.zeros((8, 1), dtype=torch.int32, device=dev)  # bucket 0: rows 0-127
+            full = torch.full((c // 128,), 128, dtype=torch.int32, device=dev)
+            run = {"blockmax16_ties": lambda: fs._blockmax16_topk(qq, rows, zero, 4),
+                   "k6_twin": lambda: (cm._chunk_maxima_plain(qq, rows, zero),),
+                   "k7_twin": lambda: ivf._bucket_rescore_plain(qq, probes, full, rows.reshape(-1, 128, d), 4)}[path]
+            got = run()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            want = run()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            for x, y in zip(got, want):
+                assert torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                                   y.view(torch.int32) if y.is_floating_point() else y), path
+            if path == "k6_twin":
+                assert bool((got[0][:, 0] == 1 + 2**-12).all())
+            else:
+                assert bool((got[1][:, 0] == 1).all()), f"{path}: TF32 ranked {got[1][:, 0].tolist()} first"
         elif path == "centroid_sums":
             assign = torch.randint(0, 64, (8192,), generator=g)
             close(lambda v, a: ivfm._update_centroids(v, a, 64)[0], emb, assign)

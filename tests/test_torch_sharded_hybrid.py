@@ -6,9 +6,8 @@ chunks are in play) and the same exact-arithmetic vectors (entries k/4 in [-1, 1
 every dot product is exact in f32). On a one-device mesh:
 
 * `shard_lex_index`: every array EQUAL (postings over the JAX shard's live prefix).
-* `sharded_bm25_topk` in `any` and `all` modes, through the plain merge harness
-  ("candidates") and the chunked kernel lane ("candidates_pallas": K4 then K3; JAX's
-  kernels in interpret mode): frame ids equal, scores within rtol 1e-6.
+* `sharded_bm25_topk`: in tests/test_torch_sharded_hybrid_bm25.py, on this file's
+  stores (the `built` fixture).
 * `sharded_hybrid_topk` with the thresholds lowered so that each dense branch runs
   (blockmax, the packed-key select kernel K1, chunkmax K6 + K7), with both BM25
   backends: fused frame ids EQUAL and fused scores EQUAL (RRF of equal rankings).
@@ -99,50 +98,6 @@ def test_shard_lex_index_arrays_equal(built, budget):
     for f in ("max_df", "pk_qb", "pk_max_chunks", "fwd_width"):
         assert getattr(ts, f) == getattr(js, f), f
     assert (ts.fwd_fused is not None) == (budget is not None)
-
-
-@pytest.mark.parametrize("mode", ["any", "all"])
-@pytest.mark.parametrize("budget,backend", [(None, "candidates"), (BUDGET, "candidates"),
-                                            (BUDGET, "candidates_pallas"), (BUDGET, "auto"),
-                                            (None, "candidates_pallas")])
-def test_sharded_bm25_topk_equal(built, mode, budget, backend):
-    jl, tl = built[0][budget]
-    jm = jax_mesh(1)
-    js = jsh.shard_lex_index(jl, jm, N)
-    ts = tsh.shard_lex_index(tl, torch_mesh("cpu"), N)
-    tids = _term_ids(tl)
-    for k in (5, 24):
-        jv, jf = jsh.sharded_bm25_topk(jnp.asarray(tids), js, k, jm, mode=mode, backend=backend)
-        tv, tf = tsh.sharded_bm25_topk(torch.from_numpy(tids), ts, k, torch_mesh("cpu"), mode=mode,
-                                       backend=backend)
-        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6, atol=0)
-        if budget is None and backend == "candidates_pallas":
-            # K8 sums a row in query-slot order, the TPU kernel in merge-network order:
-            # the many duplicate documents here tie exactly in the port (lowest row
-            # first) and up to an ulp apart in the JAX package
-            deep = jsh.sharded_bm25_topk(jnp.asarray(tids), js, k + 64, jm, mode=mode, backend=backend)
-            np.testing.assert_array_equal(tf.numpy(), _lowest_row_on_ties(*deep, k))
-        else:
-            np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
-    assert (tf.numpy() >= 0).any() and (tf.numpy()[5] == -1).all()
-
-
-def _lowest_row_on_ties(vals, fids, k, rtol=1e-6):
-    """The first k of a ranked list once scores within `rtol` of their neighbour are
-    taken as one tie, broken by the lowest id (frame id == row in these stores)."""
-    vals, fids = np.asarray(vals), np.asarray(fids)
-    out = np.full((vals.shape[0], k), -1, np.int32)
-    for i in range(vals.shape[0]):
-        group, key = 0, []
-        for j in range(vals.shape[1]):
-            if fids[i, j] < 0:
-                break
-            if j and abs(vals[i, j] - vals[i, j - 1]) > rtol * abs(vals[i, j - 1]):
-                group += 1
-            key.append((group, fids[i, j]))
-        ranked = [f for _, f in sorted(key)][:k]
-        out[i, : len(ranked)] = ranked
-    return out
 
 
 def test_unchunked_kernel_lane_raises_naming_k8(built):

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "wax_k5_rescore_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wax_k6_chunk_maxima": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wax_k7_bucket_rescore": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "wax_k8_candidates": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wax_k8_candidates": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "wax_k9_packed_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 # entries that launch nothing: (argument types); each returns a cudaError_t.
@@ -52,6 +52,7 @@ _QUERIES = {
     "wax_k3k5_plan": [_I, _I, _I, _I, _P],
     "wax_k6_mma_plan": [_I, _I, _P],
     "wax_k7_plan": [_I, _I, _I, _I, _P],
+    "wax_k8_plan": [_I, _I, _I, _I, _P],
     "wax_flat_scan_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -13,23 +13,29 @@ summed and counted at the row's last plane position (its leader), and the plane,
 launches. Neither runs the TPU's merge network: the plane is fixed by the multiset of
 postings, so both compute each leader's position directly, and both sum a row's
 postings in query-slot order (the TPU sums them in network order, which can differ in
-the last bit: ROADMAP, deliberate differences).
+the last bit: ROADMAP, deliberate differences). K8 splits each query over G CTAs by a
+merge-path partition of its postings; `launch_plan` is the plain mirror of the C
+choice of G (`wax_k8_plan`, read on a card by `device_plan`).
 
 Left out: the per-term reversed postings copies `doc_rows_rev` / `wnorm_rev` and the
 window padding of the postings arrays, TPU-only layout the TPU kernel's DMAs read.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from wax_tpu_torch.index.lex import LexIndex
-from wax_tpu_torch.ops._build import launch, on_cpu
+from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.bm25_candidates import wide_topk
 from wax_tpu_torch.ops.bm25_chunked_pallas import _SEL_LEVELS, chunked_candidates_sel
 from wax_tpu_torch.ops.bm25_rescore import rescore_topk
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
-__all__ = ["bm25_candidates_topk_pallas", "candidate_scores_pallas", "dma_window", "K8_LAUNCHES"]
+__all__ = ["bm25_candidates_topk_pallas", "candidate_scores_pallas", "dma_window", "launch_plan", "device_plan",
+           "K8_LAUNCHES"]
 
 K8_LAUNCHES = 0
 _ALIGN = 1024  # plane positions per chunk (the TPU's (8, 128) tile)
@@ -38,6 +44,52 @@ _MAX_SLOTS = 1024  # the kernel sets up one term slot per thread
 _MAX_SEL_CHUNKS = 8192  # the selection key holds the chunk index in 13 bits
 _IMIN = -(2**31)
 _MODES = {"any": 0, "all": 1, "count": 2}
+_THREADS = 1024  # csrc/bm25_candidates.cu THREADS
+_TILE = 8192  # csrc/bm25_candidates.cu TILE: document rows a tile
+_G_MAX = 512  # csrc/bm25_candidates.cu G_MAX: CTAs a query at most
+_PLAN_KEYS = ("g", "threads", "tile")
+_tickets: dict = {}  # (device, stream) -> i32 [>= B] at zero: the sel merge's tickets
+
+
+def launch_plan(b: int, q2: int, w2: int, sms: int = 132, ctas_per_sm: int = 1) -> dict:
+    """How K8 launches for B queries of Q2 slots x W2 on a card of `sms` SMs that holds
+    `ctas_per_sm` of its CTAs each, as `plan_g` in csrc/bm25_candidates.cu chooses: G
+    CTAs a query, enough for B * G to fill every SM's CTA slots (G 1 once B does), at
+    most one 1,024-position chunk of the plane a CTA and at most 512; CTAs of `threads`
+    walking tiles of `tile` rows. Grid (B, G)."""
+    slots = sms * ctas_per_sm
+    g = 1 if b >= slots else -(-slots // b)
+    g = max(1, min(g, q2 * w2 // _ALIGN, _G_MAX))
+    return dict(zip(_PLAN_KEYS, (g, _THREADS, _TILE)))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(index: int, b: int, q2: int, w2: int, sel: int) -> tuple:
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(index):
+        err = load_library().wax_k8_plan(b, q2, w2, sel, ctypes.cast(out, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"wax_k8_plan failed: CUDA error {err}")
+    return tuple(out)
+
+
+def device_plan(b: int, q2: int, w2: int, sel: int = 0, device=None) -> dict:
+    """`launch_plan` as the built library reports it on this card (`wax_k8_plan`;
+    builds the kernels, needs a card), with the CTAs an SM holds, the SM count and the
+    dynamic shared memory a CTA."""
+    dev = torch.device(device if device is not None else "cuda")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return dict(zip(_PLAN_KEYS + ("ctas_per_sm", "sms", "smem_bytes"), _device_plan(index, b, q2, w2, sel)))
+
+
+def _tickets_for(device: torch.device, b: int) -> torch.Tensor:
+    """The sel merge's per-query tickets on `device`'s current stream: zeros, which
+    every launch leaves at zero."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < b:
+        t = _tickets[key] = torch.zeros(max(b, 256), dtype=torch.int32, device=device)
+    return t
 
 
 def dma_window(max_df: int) -> int:
@@ -114,7 +166,7 @@ def _candidate_scores_plain(term_ids, doc_rows, wnorm, offsets, idf, q2: int, w2
 
 
 def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: int, mode: str = "any",
-                            sel: int = 0):
+                            sel: int = 0, split: int | None = None):
     """K8 wrapper, the TPU kernel's raw-array entry without its reversed copies:
     [B, Q] term ids -> (rows, scores) [B, Q2*W2], Q2 the power of two >= max(Q, 2) and
     W2 = dma_window(max_df); max_df must hold every queried term's postings.
@@ -125,7 +177,10 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
     sel > 0 (rescore-fetch mode): (rows [B, sel*1024] with -1 dead, keys [B, sel*1024]
     i32), per slot position p at l * 1024 + p the l-th largest key of the plane
     positions c * 1024 + p, key = (sortable score bits & ~0x1FFF) | (0x1FFF - c): monotone
-    in the score truncated to 2^-10 relative, ties toward the lower plane position."""
+    in the score truncated to 2^-10 relative, ties toward the lower plane position.
+
+    `split` forces K8's CTAs a query (G, 1 to 512; by default `device_plan`'s); the
+    outputs do not depend on it. The plain twin ignores it."""
     global K8_LAUNCHES
     if term_ids.dim() == 1:
         term_ids = term_ids[None, :]
@@ -141,6 +196,8 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
     if q2 * w2 >= 2**31:
         raise ValueError(f"K8 indexes its plane with 32-bit positions: Q2 * W2 must stay below 2^31, got "
                          f"Q2={q2} x W2={w2}")
+    if split is not None and not 1 <= split <= _G_MAX:
+        raise ValueError(f"split must be in [1, {_G_MAX}] CTAs a query, got {split}")
     if sel and q2 * w2 // _ALIGN > _MAX_SEL_CHUNKS:
         raise ValueError(f"sel mode needs Q2 * W2 <= {_MAX_SEL_CHUNKS * _ALIGN} plane positions (the key's "
                          f"13 chunk bits), got Q2={q2} x W2={w2}")
@@ -151,13 +208,20 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
                         ("offsets", offsets, torch.int32), ("idf", idf, torch.float32)):
         if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D {dt} tensor, got {t.dtype} {tuple(t.shape)}")
+    dev = doc_rows.device
     width = sel * _ALIGN if sel else q2 * w2
-    rows = torch.empty((b, width), dtype=torch.int32, device=doc_rows.device)
-    scores = torch.empty((b, width), dtype=torch.int32 if sel else torch.float32, device=doc_rows.device)
+    rows = torch.empty((b, width), dtype=torch.int32, device=dev)
+    scores = torch.empty((b, width), dtype=torch.int32 if sel else torch.float32, device=dev)
     if b:
-        launch("wax_k8_candidates", doc_rows.device, term_ids.data_ptr(), offsets.data_ptr(), idf.data_ptr(),
+        g = split if split is not None else device_plan(b, q2, w2, sel, dev)["g"]
+        part = tickets = None
+        if sel and g > 1:  # each CTA's live lists, merged by the query's last CTA
+            part = torch.empty(b * g * 2 * sel * _ALIGN, dtype=torch.int32, device=dev)
+            tickets = _tickets_for(dev, b)
+        launch("wax_k8_candidates", dev, term_ids.data_ptr(), offsets.data_ptr(), idf.data_ptr(),
                doc_rows.data_ptr(), wnorm.data_ptr(), rows.data_ptr(), 0 if sel else scores.data_ptr(),
-               scores.data_ptr() if sel else 0, b, q, q2, w2, _MODES[mode], sel)
+               scores.data_ptr() if sel else 0, 0 if part is None else part.data_ptr(),
+               0 if tickets is None else tickets.data_ptr(), b, q, q2, w2, _MODES[mode], sel, g)
         K8_LAUNCHES += 1
     return rows, scores
 

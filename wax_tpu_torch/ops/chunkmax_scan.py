@@ -22,6 +22,7 @@ import torch
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.ivf_kernel import ivf_rescore
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk
+from wax_tpu_torch.utils.device import full_f32_matmul
 
 __all__ = ["chunkmax_scan_topk", "chunk_maxima", "mma_plan", "K6_LAUNCHES"]
 
@@ -30,8 +31,10 @@ _CHUNK = 128
 _TN = 2048  # the JAX package's corpus tile: the row count must be a multiple of it
 
 
+@full_f32_matmul
 def _chunk_maxima_plain(q, emb, bias):
-    """Plain twin of K6: [B, N/128] f32 chunk maxima of the f32 scores plus bias."""
+    """Plain twin of K6: [B, N/128] f32 chunk maxima of the f32 scores plus bias (in
+    f32 whatever the TF32 setting)."""
     scores = torch.matmul(q.float(), emb.float().t()) + bias[None, :]
     return scores.reshape(q.shape[0], -1, _CHUNK).amax(dim=2)
 

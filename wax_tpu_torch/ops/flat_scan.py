@@ -344,9 +344,11 @@ def _blockmax_topk(q, emb, bias, k: int):
     return vals, rows
 
 
+@full_f32_matmul
 def _blockmax16_topk(q, emb, bias, k: int):
     """blockmax over bf16-rounded scores, then an exact f32 rescore of the top
-    max(2k, k+16) candidates, ranked by (exact score desc, row asc)."""
+    max(2k, k+16) candidates, ranked by (exact score desc, row asc); the rescore in f32
+    whatever the TF32 setting."""
     n = emb.shape[0]
     coarse = (_scores_f32(q, emb) + bias[None, :]).to(torch.bfloat16)
     rw = int(min(max(2 * k, k + 16), n))

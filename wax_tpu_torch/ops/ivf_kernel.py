@@ -20,6 +20,7 @@ import torch
 from wax_tpu_torch.index.ivf import IVFIndex, _assign_scores, _pad_k, dedup_topk, ivf_search_topk
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
+from wax_tpu_torch.utils.device import full_f32_matmul
 
 __all__ = ["argmax_fits", "bucket_rescore", "ivf_rescore", "ivf_search_topk_pallas", "launch_plan", "K7_LAUNCHES"]
 
@@ -45,8 +46,10 @@ def _check_args(q, probes, counts, emb3, k: int) -> None:
         raise ValueError(f"k={k} outside [1, nprobe * S = {probes.shape[1] * emb3.shape[1]}]")
 
 
+@full_f32_matmul
 def _bucket_rescore_plain(q, probes, counts, emb3, k: int):
-    """Plain twin of K7: (vals [B, k] f32, flat positions [B, k] i32)."""
+    """Plain twin of K7: (vals [B, k] f32, flat positions [B, k] i32), in f32 whatever
+    the TF32 setting."""
     b, nprobe = probes.shape
     s = emb3.shape[1]
     p = probes.long()
