@@ -287,23 +287,23 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def launch_counts() -> dict:
-    from wax_tpu_torch.ops import (bm25_candidates_pallas, bm25_chunked_pallas, bm25_rescore, chunkmax_scan,
-                                   flat_scan, ivf_kernel)
+# each port kernel's entry in the kernel library, whose launches `ops/_build.launch` counts
+KERNEL_ENTRIES = {"K1": "wax_k1_packed_sel", "K2": "wax_k2_scan_topk", "K3": "wax_k3_rescore_fused",
+                  "K4": "wax_k4_chunked_sel", "K5": "wax_k5_rescore_split", "K6": "wax_k6_chunk_maxima",
+                  "K7": "wax_k7_bucket_rescore", "K8": "wax_k8_candidates", "K9": "wax_k9_packed_topk"}
 
-    return {"K1": flat_scan.K1_LAUNCHES, "K2": flat_scan.K2_LAUNCHES, "K3": bm25_rescore.K3_LAUNCHES,
-            "K4": bm25_chunked_pallas.K4_LAUNCHES, "K5": bm25_rescore.K5_LAUNCHES,
-            "K6": chunkmax_scan.K6_LAUNCHES, "K7": ivf_kernel.K7_LAUNCHES,
-            "K8": bm25_candidates_pallas.K8_LAUNCHES, "K9": flat_scan.K9_LAUNCHES}
+
+def launch_counts() -> dict:
+    from wax_tpu_torch.utils.profiling import counters
+
+    counts = counters()
+    return {kid: counts.get(entry, 0) for kid, entry in KERNEL_ENTRIES.items()}
 
 
 def reset_launch_counts() -> None:
-    from wax_tpu_torch.ops import (bm25_candidates_pallas, bm25_chunked_pallas, bm25_rescore, chunkmax_scan,
-                                   flat_scan, ivf_kernel)
+    from wax_tpu_torch.utils.profiling import reset_counters
 
-    flat_scan.K1_LAUNCHES = flat_scan.K2_LAUNCHES = flat_scan.K9_LAUNCHES = 0
-    bm25_rescore.K3_LAUNCHES = bm25_rescore.K5_LAUNCHES = bm25_chunked_pallas.K4_LAUNCHES = 0
-    chunkmax_scan.K6_LAUNCHES = ivf_kernel.K7_LAUNCHES = bm25_candidates_pallas.K8_LAUNCHES = 0
+    reset_counters()
 
 
 # K1 and K2 are one template (csrc/flat_scan.cu `scan_topk`), told apart by their output
@@ -856,7 +856,7 @@ def serve_phase(engine, queries):
     ex_fids = ex_fids.cpu().numpy()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": fs.K1_LAUNCHES, "K2": fs.K2_LAUNCHES}
+    launches = {kid: n for kid, n in launch_counts().items() if kid in ("K1", "K2")}
     check(launches["K1"] > 0, "the vector lane did not launch K1")
     check(launches["K2"] > 0, "the exact-score request did not launch K2")
     n_q = sum(len(t) for t in queries)

@@ -21,6 +21,7 @@ from wax_tpu.ops.bm25 import pad_term_ids
 from wax_tpu_torch.index import lex as tlex
 from wax_tpu_torch.ops import bm25_candidates as tbc
 from wax_tpu_torch.ops import bm25_rescore as tbr
+from wax_tpu_torch.utils.profiling import counters
 
 WORDS = [f"t{i}" for i in range(48)]
 
@@ -147,12 +148,12 @@ def test_exact_rescore_k5_equals_jax_and_the_fused_route(snaps, form, n_terms):
     tids = _tids(tb, n_terms, seed=40 + n_terms)
     cand = _cands(tb, ts, seed=n_terms, f=41 if form == "wide_odd_f" else 40)
     width = 0 if form == "wide" else ts.fwd_width
-    before = tbr.K5_LAUNCHES
+    before = counters().get("wax_k5_rescore_split", 0)
     jv, jc = jbr.exact_rescore(jnp.asarray(tids), jnp.asarray(cand), js.fwd_tids, js.fwd_wnorm, js.idf,
                                fwd_width=width)
     tv, tc = tbr.exact_rescore(torch.from_numpy(tids), torch.from_numpy(cand), ts.fwd_tids, ts.fwd_wnorm, ts.idf,
                                fwd_width=width)
-    assert tbr.K5_LAUNCHES == before
+    assert counters().get("wax_k5_rescore_split", 0) == before
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6, atol=0)
     fv, fc = tbr.exact_rescore_fused(torch.from_numpy(tids), torch.from_numpy(cand), ts.fwd_fused, ts.idf)
@@ -192,9 +193,9 @@ def test_rescore_wrapper_cpu_uses_plain_and_does_not_count(snaps):
     _, ts, tb = snaps[9]
     tids_q, idf_q = tbr._query_planes(torch.from_numpy(_tids(tb, 4, seed=3)), ts.idf)
     cand = torch.from_numpy(_cands(tb, ts, seed=3))
-    before = tbr.K3_LAUNCHES
+    before = counters().get("wax_k3_rescore_fused", 0)
     got = tbr.rescore_fused(ts.fwd_fused, cand, tids_q.contiguous(), idf_q.contiguous())
     want = tbr._rescore_fused_plain(ts.fwd_fused, cand, tids_q, idf_q)
-    assert tbr.K3_LAUNCHES == before
+    assert counters().get("wax_k3_rescore_fused", 0) == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)

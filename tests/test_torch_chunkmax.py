@@ -22,6 +22,7 @@ from wax_tpu_torch.index.dense import DenseIndexBuilder as TorchBuilder
 from wax_tpu_torch.ops import chunkmax_scan as tcm
 from wax_tpu_torch.ops import flat_scan as fs
 from wax_tpu_torch.ops import ivf_kernel as tivf
+from wax_tpu_torch.utils.profiling import counters
 
 D = 64
 NEG_INF = -3.0e38
@@ -141,10 +142,10 @@ def test_k7_wrapper_cpu_uses_plain_and_does_not_count():
     q = torch.from_numpy(_grid(rng, (2, D)))
     probes = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32)
     counts = torch.full((4,), 128, dtype=torch.int32)
-    k6, k7 = tcm.K6_LAUNCHES, tivf.K7_LAUNCHES
+    k6, k7 = counters().get("wax_k6_chunk_maxima", 0), counters().get("wax_k7_bucket_rescore", 0)
     vals, pos = tivf.bucket_rescore(q, probes, counts, emb3, 5)
     tcm.chunk_maxima(q, emb3.reshape(512, D), torch.zeros(512))
-    assert (tcm.K6_LAUNCHES, tivf.K7_LAUNCHES) == (k6, k7)
+    assert (counters().get("wax_k6_chunk_maxima", 0), counters().get("wax_k7_bucket_rescore", 0)) == (k6, k7)
     assert vals.shape == pos.shape == (2, 5) and pos.dtype == torch.int32
     with pytest.raises(ValueError, match="k=300"):
         tivf._check_args(q, probes, counts, emb3, 300)

@@ -8,7 +8,8 @@ pointed at the port, so it is held the same way.
 
 Changed copies are left out by name, each for the change its header states:
 `search/match.py` (evaluated over a position index of the port builder's token log),
-`utils/profiling.py` (`device_trace` on torch.profiler), `native/build.py` (builds
+`utils/profiling.py` (bounded span samples, the tracing switch with CUDA-event device
+spans, named counters, and no `device_trace`), `native/build.py` (builds
 into wax_tpu_torch/_build/native/, safely when several processes build at once),
 `index/graph_cpp.py` (the port's native library; `snapshot` passes `device` through),
 `session.py` (`device`) and `multimodal/photo.py`, `multimodal/video.py` (`device`,

@@ -21,6 +21,7 @@ from wax_tpu_torch.ops import bm25_rescore as rs
 from wax_tpu_torch.ops import chunkmax_scan as cm
 from wax_tpu_torch.ops import flat_scan as fs
 from wax_tpu_torch.ops import ivf_kernel as ivf
+from wax_tpu_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.cuda
 
@@ -62,12 +63,12 @@ def test_kernels_equal_plain_on_exact_data(dev, dtype, b, k, n, tn, d, split, un
     bias[torch.randperm(n, generator=g)[: n // 10].to(dev)] = fs.NEG_INF
     if unaligned:
         q, emb = _unaligned(q), _unaligned(emb)
-    k1, k2 = fs.K1_LAUNCHES, fs.K2_LAUNCHES
+    k1, k2 = counters().get("wax_k1_packed_sel", 0), counters().get("wax_k2_scan_topk", 0)
     got = fs.packed_sel_tiles(q, emb, bias, k, tn, split)
     assert torch.equal(got, fs._packed_sel_topk_plain(q, emb, bias, k, tn))
     (kv, kr), (pv, pr) = fs.scan_topk_tiles(q, emb, bias, k, tn, split), fs._scan_topk_plain(q, emb, bias, k, tn)
     assert torch.equal(kv, pv) and torch.equal(kr, pr)
-    assert (fs.K1_LAUNCHES, fs.K2_LAUNCHES) == (k1 + 1, k2 + 1)
+    assert (counters().get("wax_k1_packed_sel", 0), counters().get("wax_k2_scan_topk", 0)) == (k1 + 1, k2 + 1)
 
 
 def _assert_exact_near(got, ref, scores, k):
@@ -129,11 +130,11 @@ def test_k9_unaligned_views_launch(dev):
 
 def test_launch_counters_count_kernel_launches_only(dev):
     q, emb, bias = torch.zeros(4, 32, device=dev), torch.zeros(1024, 32, device=dev), torch.zeros(1024, device=dev)
-    k1, k2 = fs.K1_LAUNCHES, fs.K2_LAUNCHES
+    k1, k2 = counters().get("wax_k1_packed_sel", 0), counters().get("wax_k2_scan_topk", 0)
     fs.packed_sel_tiles(q, emb, bias, 5, 512)
     fs.scan_topk_tiles(q, emb, bias, 5, 512)
     fs._packed_sel_topk_plain(q, emb, bias, 5, 512)
-    assert (fs.K1_LAUNCHES, fs.K2_LAUNCHES) == (k1 + 1, k2 + 1)
+    assert (counters().get("wax_k1_packed_sel", 0), counters().get("wax_k2_scan_topk", 0)) == (k1 + 1, k2 + 1)
 
 
 def test_flat_scan_topk_cuda_equals_cpu(dev):
@@ -188,9 +189,9 @@ def test_k6_chunk_maxima_equal_plain_on_exact_data(dev, dtype, b, n, d):
     q, emb = _grid(g, (b, d), dev, dtype), _grid(g, (n, d), dev, dtype)
     bias = torch.zeros(n, device=dev)
     bias[n - 200:] = fs.NEG_INF
-    k6 = cm.K6_LAUNCHES
+    k6 = counters().get("wax_k6_chunk_maxima", 0)
     got = cm.chunk_maxima(q, emb, bias)
-    assert cm.K6_LAUNCHES == k6 + 1
+    assert counters().get("wax_k6_chunk_maxima", 0) == k6 + 1
     want = cm._chunk_maxima_plain(q, emb, bias)
     assert torch.equal(got, want)
     assert torch.equal(cm.chunk_maxima(_unaligned(q), _unaligned(emb), _unaligned(bias)), want)
@@ -220,9 +221,9 @@ def test_k7_bucket_rescore_equal_plain_on_exact_data(dev, dtype, b, nprobe, d, k
     counts[probes[0, 1]] = 0  # a probed bucket with no live row
     pv, pp = ivf._bucket_rescore_plain(q, probes, counts, emb3, k)
     for e3 in (emb3, _unaligned(emb3)):
-        k7 = ivf.K7_LAUNCHES
+        k7 = counters().get("wax_k7_bucket_rescore", 0)
         kv, kp = ivf.bucket_rescore(q, probes, counts, e3, k)
-        assert ivf.K7_LAUNCHES == k7 + 1
+        assert counters().get("wax_k7_bucket_rescore", 0) == k7 + 1
         assert torch.equal(kv, pv) and torch.equal(kp, pp)
     assert bool((pv[0] > fs.NEG_INF).any())
 
@@ -239,9 +240,9 @@ def test_k7_bucket_rescore_near_plain_on_random_unit_vectors(dev, b, nprobe, d, 
     q = fs.normalize_rows(torch.randn((b, d), generator=g)).to(dev)
     probes = torch.stack([torch.randperm(c, generator=g)[:nprobe] for _ in range(b)]).to(dev, torch.int32)
     counts = torch.randint(64, 129, (c,), generator=g).to(dev, torch.int32)
-    k7 = ivf.K7_LAUNCHES
+    k7 = counters().get("wax_k7_bucket_rescore", 0)
     kv, kp = ivf.bucket_rescore(q, probes, counts, emb3, k)
-    assert ivf.K7_LAUNCHES == k7 + 1
+    assert counters().get("wax_k7_bucket_rescore", 0) == k7 + 1
     pv, pp = ivf._bucket_rescore_plain(q, probes, counts, emb3, k)
     assert float((kv - pv).abs().max()) <= 1e-5
     for i in range(b):
@@ -278,9 +279,9 @@ def test_k7_ivf_shapes_equal_plain_on_exact_data(dev, dtype, s, nprobe, k):
     probes = torch.stack([torch.randperm(c, generator=g)[:nprobe] for _ in range(b)]).to(dev, torch.int32)
     counts = torch.randint(s // 2, s + 1, (c,), generator=g).to(dev, torch.int32)
     counts[probes[0, 1]] = 0
-    k7 = ivf.K7_LAUNCHES
+    k7 = counters().get("wax_k7_bucket_rescore", 0)
     kv, kp = ivf.bucket_rescore(q, probes, counts, emb3, k)
-    assert ivf.K7_LAUNCHES == k7 + 1
+    assert counters().get("wax_k7_bucket_rescore", 0) == k7 + 1
     pv, pp = ivf._bucket_rescore_plain(q, probes, counts, emb3, k)
     assert torch.equal(kv, pv) and torch.equal(kp, pp)
 
@@ -318,11 +319,11 @@ def test_ivf_build_repeats_and_search_cuda_equals_cpu(dev):
         idx = dataclasses.replace(a, centroids=cent)
         cpu = dataclasses.replace(idx, **{f: getattr(idx, f).cpu() for f in ("centroids", "emb", "ids", "bias")})
         for k, nprobe in ((10, 8), (20, 16), (200, 4), (200, 96)):
-            k7 = ivf.K7_LAUNCHES
+            k7 = counters().get("wax_k7_bucket_rescore", 0)
             gv, gf = ivf_search_topk_pallas(q.to(dev), idx, k=k, nprobe=nprobe)
             plain = spill and 2 * k > 128 and not ivf.argmax_fits(96, idx.bucket_size, nprobe)
             assert plain == (spill and nprobe == 96), (idx.bucket_size, nprobe)
-            assert ivf.K7_LAUNCHES == k7 + (0 if plain else 1)
+            assert counters().get("wax_k7_bucket_rescore", 0) == k7 + (0 if plain else 1)
             cv, cf = ivf_search_topk_pallas(q, cpu, k=k, nprobe=nprobe)
             assert torch.equal(gf.cpu(), cf) and torch.equal(gv.cpu(), cv), (spill, k)
             if not spill:
@@ -369,9 +370,9 @@ def _query_slots(g, b, q, vocab, dev):
 
 
 def _assert_k3_equal_plain(fused, cand, tq, iq):
-    k3 = rs.K3_LAUNCHES
+    k3 = counters().get("wax_k3_rescore_fused", 0)
     ks, kc = rs.rescore_fused(fused, cand, tq, iq)
-    assert rs.K3_LAUNCHES == k3 + (1 if cand.numel() else 0)
+    assert counters().get("wax_k3_rescore_fused", 0) == k3 + (1 if cand.numel() else 0)
     ps, pc = rs._rescore_fused_plain(fused, cand, tq, iq)
     assert torch.equal(kc, pc) and torch.equal(ks, ps)
     return ks, kc
@@ -479,9 +480,9 @@ def test_k4_chunked_sel_equal_plain(dev, mode, n_terms, case):
         assert bool((win == dead).any(dim=1).all())
     seg = max(1, int(np.ceil(np.log2(2 * n_terms))))
     for sg in (5, 4) if case == "repeat" else (seg,):  # the window equals the runs of 32, or half of them
-        k4 = ck.K4_LAUNCHES
+        k4 = counters().get("wax_k4_chunked_sel", 0)
         kr, kk = ck.chunked_sel(win, pk, qb=qb, seg_log2=sg, mode=mode)
-        assert ck.K4_LAUNCHES == k4 + 1
+        assert counters().get("wax_k4_chunked_sel", 0) == k4 + 1
         pr, pkeys = ck._chunked_sel_plain(win, pk, qb, sg, mode, 3)
         assert torch.equal(kk, pkeys) and torch.equal(kr, pr), sg
         assert bool((pr >= 0).any())
@@ -515,9 +516,9 @@ def test_k9_equals_plain_on_exact_data_and_k1_on_any(dev, dtype, b, k, n, tn, d)
     q, emb = _grid(g, (b, d), dev, dtype), _grid(g, (n, d), dev, dtype)
     bias = torch.zeros(n, device=dev)
     bias[torch.randperm(n, generator=g)[: n // 10].to(dev)] = fs.NEG_INF
-    k9 = fs.K9_LAUNCHES
+    k9 = counters().get("wax_k9_packed_topk", 0)
     got = fs.packed_topk_tiles(q, emb, bias, k, tn)
-    assert fs.K9_LAUNCHES == k9 + 1
+    assert counters().get("wax_k9_packed_topk", 0) == k9 + 1
     assert torch.equal(got, fs._packed_sel_topk_plain(q, emb, bias, k, tn))
     assert torch.equal(got, fs.packed_sel_tiles(q, emb, bias, k, tn))
     qr = fs.normalize_rows(torch.randn((b, d), generator=g)).to(dev, dtype).contiguous()
@@ -557,9 +558,9 @@ def test_k5_rescore_equal_plain_and_k3(dev, q, l, width):
     tq = torch.randint(-1, 400, (b, q), generator=g, dtype=torch.int32).to(dev)
     iq = torch.where(tq >= 0, (torch.randint(1, 5, (b, q), generator=g) / 4.0).to(dev), 0.0).float()
     ft, fw = tids.to(dev), w.to(dev)
-    k5 = rs.K5_LAUNCHES
+    k5 = counters().get("wax_k5_rescore_split", 0)
     ks, kc = rs.rescore_split(ft, fw, cand, tq, iq, width)
-    assert rs.K5_LAUNCHES == k5 + 1
+    assert counters().get("wax_k5_rescore_split", 0) == k5 + 1
     ps, pc = rs._rescore_split_plain(ft, fw, cand, tq, iq, width)
     assert torch.equal(kc, pc) and torch.equal(ks, ps)
     if l % 64 == 0:
@@ -624,9 +625,9 @@ def test_k8_candidates_equal_plain(dev, exact, mode, sel, b, split):
     assert k8.dma_window(31_744) == 32_768
     if split == "plan_max":
         split = k8.device_plan(1, 16, 32_768, sel, dev)["g"]
-    n8 = k8.K8_LAUNCHES
+    n8 = counters().get("wax_k8_candidates", 0)
     got = k8.candidate_scores_pallas(tq, *args, max_df=31_744, mode=mode, sel=sel, split=split)
-    assert k8.K8_LAUNCHES == n8 + 1
+    assert counters().get("wax_k8_candidates", 0) == n8 + 1
     want = k8._candidate_scores_plain(tq, *args, 16, 32_768, mode, sel)
     for a, c in zip(got, want):
         assert a.dtype == c.dtype and torch.equal(a, c)
@@ -913,13 +914,13 @@ def test_orchestrator_maintenance_on_the_card_equals_cpu(dev, tmp_path):
             for o in (card, cpu):
                 getattr(o.maintainer, step)()
             assert len(card.engine.vector) == len(cpu.engine.vector) == 4096 - 409
-            k1 = fs.K1_LAUNCHES
+            k1 = counters().get("wax_k1_packed_sel", 0)
             for q in queries:
                 a, b = cpu.search(q), card.search(q)
                 assert [h.frame_id for h in a.hits] == [h.frame_id for h in b.hits], (step, q)
                 np.testing.assert_allclose([h.score for h in b.hits], [h.score for h in a.hits], rtol=1e-6)
                 assert a.lane_counts == b.lane_counts
-            assert fs.K1_LAUNCHES - k1 == len(queries)
+            assert counters().get("wax_k1_packed_sel", 0) - k1 == len(queries)
             assert card.engine.vector.snapshot().emb.is_cuda and card.engine.lex_snapshot().device.type == "cuda"
     finally:
         card.close()

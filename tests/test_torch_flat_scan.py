@@ -23,6 +23,7 @@ from wax_tpu.index.dense import Similarity
 from wax_tpu.ops.flat_scan import flat_scan_topk as jax_scan
 from wax_tpu_torch.index.dense import DenseIndexBuilder as TorchBuilder
 from wax_tpu_torch.ops import flat_scan as fs
+from wax_tpu_torch.utils.profiling import counters
 
 D = 64
 REMOVED = (5, 77, 2000, 2047, 2048)  # tombstones, two of them at a tile edge
@@ -193,10 +194,10 @@ def test_unported_backends_raise(exact_snaps, backend):
     rng = np.random.default_rng(6)
     js, ts = _pair(4096, Similarity.COSINE, rng.standard_normal((3000, D)).astype(np.float32), True)
     q = np.asarray(fs.normalize_rows(torch.from_numpy(rng.standard_normal((9, D)).astype(np.float32))))
-    before = fs.K9_LAUNCHES
+    before = counters().get("wax_k9_packed_topk", 0)
     jv, jr, jf = _run(jax_scan, q, js, 12, backend)
     tv, tr, tf = _run(fs.flat_scan_topk, q, ts, 12, backend)
-    assert fs.K9_LAUNCHES == before  # the plain twin ran on the CPU
+    assert counters().get("wax_k9_packed_topk", 0) == before  # the plain twin ran on the CPU
     # scores differ in the last f32 bits (summation order); the 2^-12 truncation keeps
     # them equal unless one straddles a truncation step
     np.testing.assert_allclose(tv, jv, rtol=2.0**-11, atol=1e-6)
@@ -224,10 +225,10 @@ def test_kernel_wrappers_cpu_use_plain_twin_and_do_not_count(exact_snaps):
     _, ts = exact_snaps[(4096, True)]
     q = torch.from_numpy(_grid(np.random.default_rng(5), (4, D)))
     bias = fs._index_bias(ts)
-    k1, k2 = fs.K1_LAUNCHES, fs.K2_LAUNCHES
+    k1, k2 = counters().get("wax_k1_packed_sel", 0), counters().get("wax_k2_scan_topk", 0)
     keys = fs.packed_sel_tiles(q, ts.emb, bias, 10, 2048)
     vals, rows = fs.scan_topk_tiles(q, ts.emb, bias, 10, 2048)
-    assert (fs.K1_LAUNCHES, fs.K2_LAUNCHES) == (k1, k2)
+    assert (counters().get("wax_k1_packed_sel", 0), counters().get("wax_k2_scan_topk", 0)) == (k1, k2)
     assert keys.shape == vals.shape == rows.shape == (4, 2 * 10)
     torch.testing.assert_close(keys, fs._packed_sel_topk_plain(q, ts.emb, bias, 10, 2048), rtol=0, atol=0)
     # each tile's list is sorted by (score desc, column asc)

@@ -20,6 +20,8 @@ from pathlib import Path
 
 import torch
 
+from wax_tpu_torch.utils.profiling import count
+
 __all__ = ["build", "load_library", "library_path", "on_cpu", "launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -152,10 +154,12 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call kernel entry `name` with `args` on the current stream of `device`; raise
-    with CUDA's message if the launch failed."""
+    with CUDA's message if the launch failed. Each launch adds one to the counter
+    `name` (`utils.profiling.counters()`)."""
     lib = load_library()
     with torch.cuda.device(device):
         err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         msg = lib.wax_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+    count(name)

@@ -9,7 +9,7 @@ summed and counted at the row's last plane position (its leader), and the plane,
 
 `candidate_scores_pallas` is the kernel wrapper: on CUDA tensors it launches K8
 (`csrc/bm25_candidates.cu`), on CPU tensors it runs the plain twin
-`_candidate_scores_plain`. The two agree bit for bit on any data; `K8_LAUNCHES` counts
+`_candidate_scores_plain`. The two agree bit for bit on any data; `ops/_build.launch` counts
 launches. Neither runs the TPU's merge network: the plane is fixed by the multiset of
 postings, so both compute each leader's position directly, and both sum a row's
 postings in query-slot order (the TPU sums them in network order, which can differ in
@@ -34,10 +34,8 @@ from wax_tpu_torch.ops.bm25_chunked_pallas import _SEL_LEVELS, chunked_candidate
 from wax_tpu_torch.ops.bm25_rescore import rescore_topk
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
-__all__ = ["bm25_candidates_topk_pallas", "candidate_scores_pallas", "dma_window", "launch_plan", "device_plan",
-           "K8_LAUNCHES"]
+__all__ = ["bm25_candidates_topk_pallas", "candidate_scores_pallas", "dma_window", "launch_plan", "device_plan"]
 
-K8_LAUNCHES = 0
 _ALIGN = 1024  # plane positions per chunk (the TPU's (8, 128) tile)
 _SEL_MAX = 4
 _MAX_SLOTS = 1024  # the kernel sets up one term slot per thread
@@ -181,7 +179,6 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
 
     `split` forces K8's CTAs a query (G, 1 to 512; by default `device_plan`'s); the
     outputs do not depend on it. The plain twin ignores it."""
-    global K8_LAUNCHES
     if term_ids.dim() == 1:
         term_ids = term_ids[None, :]
     if mode not in _MODES:
@@ -222,7 +219,6 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
                doc_rows.data_ptr(), wnorm.data_ptr(), rows.data_ptr(), 0 if sel else scores.data_ptr(),
                scores.data_ptr() if sel else 0, 0 if part is None else part.data_ptr(),
                0 if tickets is None else tickets.data_ptr(), b, q, q2, w2, _MODES[mode], sel, g)
-        K8_LAUNCHES += 1
     return rows, scores
 
 

@@ -12,7 +12,7 @@ is quantized; the exact scores come from the forward-index rescore (K3).
 `chunked_sel` is the kernel wrapper: on CUDA tensors it launches K4
 (`csrc/bm25_chunked.cu`), on CPU tensors it runs the plain twin `_chunked_sel_plain`.
 All arithmetic is integer, so the two agree bit for bit with each other and with the
-JAX package. `K4_LAUNCHES` counts launches. The per-block reversed chunk copy the TPU
+JAX package. `ops/_build.launch` counts launches. The per-block reversed chunk copy the TPU
 kernel reads (`pk_chunks_rev`) is not needed here.
 """
 from __future__ import annotations
@@ -25,9 +25,8 @@ from wax_tpu_torch.index.lex import PK_CHUNK
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 
 __all__ = ["chunked_candidates_sel", "chunked_sel", "pack_query_chunks", "slots_for_query", "launch_plan",
-           "MIN_SLOTS", "K4_LAUNCHES"]
+           "MIN_SLOTS"]
 
-K4_LAUNCHES = 0
 MIN_SLOTS = 32
 _SEL_LEVELS = 3
 _I32_MAX = 2**31 - 1
@@ -113,7 +112,6 @@ def chunked_sel(win, pk, *, qb: int, seg_log2: int, mode: str = "any", sel: int 
     """K4 wrapper: win [B, slots] i32 chunk blocks of pk [PB * 1024] i32 -> (rows,
     keys) [B, sel * 1024] i32: per (slot position p, level l) at l * 1024 + p the
     l-th best rank key of the positions c * 1024 + p, with its row (-1 dead)."""
-    global K4_LAUNCHES
     if on_cpu(win, pk):
         return _chunked_sel_plain(win, pk, qb, seg_log2, mode, sel)
     b, slots = win.shape
@@ -130,7 +128,6 @@ def chunked_sel(win, pk, *, qb: int, seg_log2: int, mode: str = "any", sel: int 
         launch("wax_k4_chunked_sel", win.device, win.data_ptr(), pk.data_ptr(), rows.data_ptr(),
                keys.data_ptr(), 0 if scratch is None else scratch.data_ptr(), b, slots, qb, seg_log2,
                int(mode == "count"), sel)
-        K4_LAUNCHES += 1
     return rows, keys
 
 

@@ -9,11 +9,11 @@ list, which no budget truncates.
   * `exact_rescore_fused`: against the fused forward index (`fuse_forward`), one row
     gather per candidate. Its wrapper `rescore_fused` launches kernel K3
     (`csrc/bm25_rescore.cu`) on CUDA tensors and runs the plain twin
-    `_rescore_fused_plain` on CPU tensors. `K3_LAUNCHES` counts launches.
+    `_rescore_fused_plain` on CPU tensors.
   * `exact_rescore`: against separate `fwd_tids` / `fwd_wnorm`. Its wrapper
     `rescore_split` launches kernel K5 (`csrc/bm25_rescore.cu`) on CUDA tensors and
-    runs the plain twin `_rescore_split_plain` on CPU tensors. `K5_LAUNCHES` counts
-    launches. A lane matches only with a weight > 0, as in the TPU kernel. A truncated
+    runs the plain twin `_rescore_split_plain` on CPU tensors. `ops/_build.launch` counts
+    both kernels' launches. A lane matches only with a weight > 0, as in the TPU kernel. A truncated
     snapshot always carries `fwd_fused`, so the serving paths take K3; K5 serves
     `exact_rescore` and `rescore_topk(fwd_fused=None)`.
   * `rescore_topk`: the stable top-k over rescored candidates, ties to the lowest row.
@@ -33,10 +33,8 @@ from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
 __all__ = ["exact_rescore", "exact_rescore_fused", "rescore_fused", "rescore_split", "rescore_topk",
-           "launch_plan", "device_plan", "K3_LAUNCHES", "K5_LAUNCHES"]
+           "launch_plan", "device_plan"]
 
-K3_LAUNCHES = 0
-K5_LAUNCHES = 0
 _QMAX = 128
 _L2MAX = 512  # the forward width cap (FWD_WIDTH_CAP); K3 holds a row in registers
 _NARROW = 64  # K5's narrow form: the first 64 lanes, two candidates per warp
@@ -111,7 +109,6 @@ def rescore_fused(fwd_fused, cand_rows, tids_q, idf_q):
     """K3 wrapper: fwd_fused [N, 2*L2] i32, cand_rows [B, F] i32 (-1 dead), query
     slots tids_q [B, Q] i32 (-1 pad) and idf_q [B, Q] f32 -> (scores [B, F] f32,
     counts [B, F] i32)."""
-    global K3_LAUNCHES
     if on_cpu(fwd_fused, cand_rows, tids_q, idf_q):
         return _rescore_fused_plain(fwd_fused, cand_rows, tids_q, idf_q)
     for name, t, dt in (("fwd_fused", fwd_fused, torch.int32), ("cand_rows", cand_rows, torch.int32),
@@ -128,7 +125,6 @@ def rescore_fused(fwd_fused, cand_rows, tids_q, idf_q):
     if b and f:
         launch("wax_k3_rescore_fused", cand_rows.device, fwd_fused.data_ptr(), cand_rows.data_ptr(),
                tids_q.data_ptr(), idf_q.data_ptr(), scores.data_ptr(), counts.data_ptr(), b, f, q, w // 2)
-        K3_LAUNCHES += 1
     return scores, counts
 
 
@@ -164,7 +160,6 @@ def rescore_split(fwd_tids, fwd_wnorm, cand_rows, tids_q, idf_q, width: int):
     `width` lanes (64, the narrow form, or L), cand_rows [B, F] i32 (-1 dead), query
     slots tids_q [B, Q] i32 (-1 pad) and idf_q [B, Q] f32 -> (scores [B, F] f32,
     counts [B, F] i32)."""
-    global K5_LAUNCHES
     if on_cpu(fwd_tids, fwd_wnorm, cand_rows, tids_q, idf_q):
         return _rescore_split_plain(fwd_tids, fwd_wnorm, cand_rows, tids_q, idf_q, width)
     for name, t, dt in (("fwd_tids", fwd_tids, torch.int32), ("fwd_wnorm", fwd_wnorm, torch.float32),
@@ -185,7 +180,6 @@ def rescore_split(fwd_tids, fwd_wnorm, cand_rows, tids_q, idf_q, width: int):
         launch("wax_k5_rescore_split", cand_rows.device, fwd_tids.data_ptr(), fwd_wnorm.data_ptr(),
                cand_rows.data_ptr(), tids_q.data_ptr(), idf_q.data_ptr(), scores.data_ptr(), counts.data_ptr(),
                b, f, q, l, width)
-        K5_LAUNCHES += 1
     return scores, counts
 
 

@@ -10,8 +10,8 @@ PyTorch port of `wax_tpu.ops.chunkmax_scan`:
      corpus being an IVF index of 128-row buckets probed in chunk-rank order.
 
 Queries are cast to the corpus dtype for stage 1 and that bf16-rounded query, widened
-to f32, is what K7 rescores with (as the JAX package does). `K6_LAUNCHES` counts K6
-launches; on CPU tensors `chunk_maxima` runs its plain twin `_chunk_maxima_plain`.
+to f32, is what K7 rescores with (as the JAX package does). `ops/_build.launch` counts
+K6 launches; on CPU tensors `chunk_maxima` runs its plain twin `_chunk_maxima_plain`.
 """
 from __future__ import annotations
 
@@ -23,10 +23,10 @@ from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.ivf_kernel import ivf_rescore
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk
 from wax_tpu_torch.utils.device import full_f32_matmul
+from wax_tpu_torch.utils.profiling import device_span
 
-__all__ = ["chunkmax_scan_topk", "chunk_maxima", "mma_plan", "K6_LAUNCHES"]
+__all__ = ["chunkmax_scan_topk", "chunk_maxima", "mma_plan"]
 
-K6_LAUNCHES = 0
 _CHUNK = 128
 _TN = 2048  # the JAX package's corpus tile: the row count must be a multiple of it
 
@@ -42,7 +42,6 @@ def _chunk_maxima_plain(q, emb, bias):
 def chunk_maxima(q, emb, bias):
     """K6 wrapper: q [B, d] and emb [N, d] of one dtype (f32 or bf16), bias [N] f32,
     N % 128 == 0 -> [B, N/128] f32 chunk maxima."""
-    global K6_LAUNCHES
     if on_cpu(q, emb, bias):
         return _chunk_maxima_plain(q, emb, bias)
     if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1]:
@@ -58,7 +57,6 @@ def chunk_maxima(q, emb, bias):
     if b:
         launch("wax_k6_chunk_maxima", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
                cm.data_ptr(), b, n, d, int(q.dtype == torch.bfloat16))
-        K6_LAUNCHES += 1
     return cm
 
 
@@ -90,10 +88,13 @@ def chunkmax_scan_topk(queries: torch.Tensor, emb: torch.Tensor, bias: torch.Ten
         raise ValueError(f"corpus rows must be a multiple of {_TN}")
     q = queries.to(emb.dtype).contiguous()
     n_chunks = n // _CHUNK
-    cm = chunk_maxima(q, emb, bias)
+    with device_span("chunkmax.k6", emb.device):
+        cm = chunk_maxima(q, emb, bias)
     kc = min(k, n_chunks)  # small corpora have fewer chunks than k: rescore them all
-    _, chunks = blockmax_topk(cm, kc)
-    counts = (bias.reshape(n_chunks, _CHUNK) > NEG_INF * 0.5).sum(dim=1).to(torch.int32)
-    ids2 = torch.arange(n, dtype=torch.int32, device=emb.device).reshape(n_chunks, _CHUNK)
-    return ivf_rescore(q.float(), chunks.to(torch.int32).contiguous(), counts,
-                       emb.reshape(n_chunks, _CHUNK, d), ids2, k)
+    with device_span("chunkmax.select", emb.device):
+        _, chunks = blockmax_topk(cm, kc)
+    with device_span("chunkmax.rescore", emb.device):
+        counts = (bias.reshape(n_chunks, _CHUNK) > NEG_INF * 0.5).sum(dim=1).to(torch.int32)
+        ids2 = torch.arange(n, dtype=torch.int32, device=emb.device).reshape(n_chunks, _CHUNK)
+        return ivf_rescore(q.float(), chunks.to(torch.int32).contiguous(), counts,
+                           emb.reshape(n_chunks, _CHUNK, d), ids2, k)

@@ -27,8 +27,8 @@ PyTorch port of `wax_tpu.ops.flat_scan`. Backends, as in the JAX package:
 
 Each kernel wrapper takes its plain torch twin (`_packed_sel_topk_plain` for K1 and
 K9, `_scan_topk_plain` for K2) only when its tensors lie on the CPU; for CUDA tensors
-it launches the kernel or raises. `K1_LAUNCHES`, `K2_LAUNCHES` and `K9_LAUNCHES` count
-launches.
+it launches the kernel or raises; `ops/_build.launch` counts each launch by its entry
+name (`utils.profiling.counters()`).
 
 Masking: tombstones and padding are excluded through an additive bias row (0 for
 live rows, NEG_INF otherwise).
@@ -44,6 +44,7 @@ from wax_tpu_torch.index.dense import DenseIndex, Similarity
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk, masked_top_k, stable_top_k
 from wax_tpu_torch.utils.device import full_f32_matmul
+from wax_tpu_torch.utils.profiling import device_span
 
 __all__ = [
     "flat_scan_topk",
@@ -54,15 +55,7 @@ __all__ = [
     "scan_topk_tiles",
     "scan_plan",
     "launch_plan",
-    "K1_LAUNCHES",
-    "K2_LAUNCHES",
-    "K9_LAUNCHES",
 ]
-
-# Launch counters of the kernels: each wrapper adds one where it launches.
-K1_LAUNCHES = 0
-K2_LAUNCHES = 0
-K9_LAUNCHES = 0
 
 # Corpus tile width: the widest candidate dividing the capacity (the builder keeps
 # capacity a multiple of 512). The packed key's 11 column bits cap it at 2048.
@@ -237,7 +230,6 @@ def packed_sel_tiles(q, emb, bias, k: int, tn: int, split: int | None = None) ->
     `scan_plan` picks it. Equal to the plain twin bit for bit where TF32 holds the
     inputs exactly (the 1/8 grid, any bf16 data); elsewhere a key may differ at a
     2^-12 bucket edge."""
-    global K1_LAUNCHES
     if on_cpu(q, emb, bias):
         return _packed_sel_topk_plain(q, emb, bias, k, tn)
     _check_kernel_args(q, emb, bias, k, tn)
@@ -246,7 +238,6 @@ def packed_sel_tiles(q, emb, bias, k: int, tn: int, split: int | None = None) ->
     if b:
         launch("wax_k1_packed_sel", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
                out.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16), _split_for(q, emb, k, tn, split))
-        K1_LAUNCHES += 1
     return out
 
 
@@ -276,7 +267,6 @@ def packed_topk_tiles(q, emb, bias, k: int, tn: int) -> torch.Tensor:
     tensor-core scores (kernel on CUDA, the shared plain twin `_packed_sel_topk_plain`
     on the CPU). Equal to K1 bit for bit where TF32 holds the inputs exactly (the 1/8
     grid, any bf16 data); elsewhere a key may differ at a 2^-12 bucket edge."""
-    global K9_LAUNCHES
     if on_cpu(q, emb, bias):
         return _packed_sel_topk_plain(q, emb, bias, k, tn)
     _check_kernel_args(q, emb, bias, k, tn)
@@ -285,7 +275,6 @@ def packed_topk_tiles(q, emb, bias, k: int, tn: int) -> torch.Tensor:
     if b:
         launch("wax_k9_packed_topk", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
                out.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16))
-        K9_LAUNCHES += 1
     return out
 
 
@@ -313,7 +302,6 @@ def scan_topk_tiles(q, emb, bias, k: int, tn: int, split: int | None = None):
     """K2 wrapper: per-tile (vals, rows) [B, N/tn * k] (kernel on CUDA, plain twin on
     the CPU); `split` as for K1. The kernel's values are 3xTF32 sums: equal to the
     twin's on the 1/8 grid and bf16 data, within ~1e-6 elsewhere."""
-    global K2_LAUNCHES
     if on_cpu(q, emb, bias):
         return _scan_topk_plain(q, emb, bias, k, tn)
     _check_kernel_args(q, emb, bias, k, tn)
@@ -324,7 +312,6 @@ def scan_topk_tiles(q, emb, bias, k: int, tn: int, split: int | None = None):
         launch("wax_k2_scan_topk", q.device, q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
                vals.data_ptr(), rows.data_ptr(), b, n, d, tn, k, int(q.dtype == torch.bfloat16),
                _split_for(q, emb, k, tn, split))
-        K2_LAUNCHES += 1
     return vals, rows
 
 
@@ -398,6 +385,11 @@ def flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, *, backend:
       (scores [B, k] f32, rows [B, k] int32 row indices into index.emb,
        frame_ids [B, k] int32); empty slots carry score NEG_INF and index -1.
     """
+    with device_span("flat_scan.call", queries.device):
+        return _flat_scan_topk(queries, index, k, backend)
+
+
+def _flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, backend: str):
     if queries.dim() == 1:
         queries = queries[None, :]
     b, d = queries.shape

@@ -9,7 +9,7 @@ probed [S, d] buckets and extracts its exact top-k, and its IVF entry
 (`csrc/ivf_kernel.cu`), on CPU tensors it runs the plain version
 `_bucket_rescore_plain`. Both return the k best candidates by (f32 score desc, flat
 position p * S + r asc), so ties go to the lowest position in probe-rank order, not to
-the lowest row. `K7_LAUNCHES` counts kernel launches.
+the lowest row. `ops/_build.launch` counts kernel launches by entry name.
 """
 from __future__ import annotations
 
@@ -22,13 +22,11 @@ from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 from wax_tpu_torch.utils.device import full_f32_matmul
 
-__all__ = ["argmax_fits", "bucket_rescore", "ivf_rescore", "ivf_search_topk_pallas", "launch_plan", "K7_LAUNCHES"]
+__all__ = ["argmax_fits", "bucket_rescore", "ivf_rescore", "ivf_search_topk_pallas", "launch_plan"]
 
 _KPAD = 128  # the most candidates the TPU kernel extracts a query (its output lanes)
 _SMEM_MAX = 227 * 1024  # shared memory a CTA may hold on sm_90 (`SMEM_MAX` in csrc/ivf_kernel.cu)
 _ARGMAX_STATIC = 64  # the arg-max body's static shared memory: one 8-byte slot for each of its 8 warps
-
-K7_LAUNCHES = 0
 
 
 def _check_args(q, probes, counts, emb3, k: int) -> None:
@@ -68,7 +66,6 @@ def bucket_rescore(q, probes, counts, emb3, k: int):
 
     q [B, d] f32; probes [B, nprobe] i32 bucket ids; counts [C] i32 live rows per
     bucket (rows at or past the count score NEG_INF); emb3 [C, S, d] f32 or bf16."""
-    global K7_LAUNCHES
     if on_cpu(q, probes, counts, emb3):
         return _bucket_rescore_plain(q, probes, counts, emb3, k)
     _check_args(q, probes, counts, emb3, k)
@@ -80,7 +77,6 @@ def bucket_rescore(q, probes, counts, emb3, k: int):
         launch("wax_k7_bucket_rescore", q.device, q.data_ptr(), probes.data_ptr(), counts.data_ptr(),
                emb3.data_ptr(), vals.data_ptr(), pos.data_ptr(), b, d, s, nprobe, k,
                int(emb3.dtype == torch.bfloat16))
-        K7_LAUNCHES += 1
     return vals, pos
 
 

@@ -14,6 +14,7 @@ import torch
 
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 from wax_tpu_torch.parallel.mesh import DATA_AXIS, SLICE_AXIS, Mesh
+from wax_tpu_torch.utils.profiling import device_span
 
 __all__ = ["merge_topk_across_mesh"]
 
@@ -43,10 +44,11 @@ def merge_topk_across_mesh(vals, fids, k: int, mesh: Mesh):
     if len(vals) != n or len(fids) != n:
         raise ValueError(f"{len(vals)} candidate lists for {n} corpus shards")
     lead = mesh.device
-    vals = [v.to(lead, non_blocking=True) for v in vals]
-    fids = [f.to(lead, non_blocking=True) for f in fids]
-    per = mesh.shape[DATA_AXIS]
-    slices = [_gather_merge(vals[i:i + per], fids[i:i + per], k) for i in range(0, n, per)]
-    if SLICE_AXIS not in mesh.axis_names:
-        return slices[0]
-    return _gather_merge([v for v, _ in slices], [f for _, f in slices], k)
+    with device_span("merge.across_mesh", lead):
+        vals = [v.to(lead, non_blocking=True) for v in vals]
+        fids = [f.to(lead, non_blocking=True) for f in fids]
+        per = mesh.shape[DATA_AXIS]
+        slices = [_gather_merge(vals[i:i + per], fids[i:i + per], k) for i in range(0, n, per)]
+        if SLICE_AXIS not in mesh.axis_names:
+            return slices[0]
+        return _gather_merge([v for v, _ in slices], [f for _, f in slices], k)

@@ -22,6 +22,7 @@ from wax_tpu_torch.ops.flat_scan import _scores_f32
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk
 from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
 from wax_tpu_torch.parallel.mesh import Mesh, corpus_shards, on_device, replicate, shard_rows
+from wax_tpu_torch.utils.profiling import device_span
 
 __all__ = ["ShardedDenseIndex", "shard_dense_index", "sharded_flat_scan_topk"]
 
@@ -81,15 +82,16 @@ def sharded_flat_scan_topk(queries, index: ShardedDenseIndex, k: int, mesh: Mesh
 
     queries [B, d] (numpy or a tensor). Returns (scores [B, k] f32, frame_ids [B, k]
     i32) on the mesh's lead device."""
-    q = torch.as_tensor(queries, dtype=torch.float32)
-    qs = replicate(mesh, q)
-    vals, fids = [], []
-    for s, dev in enumerate(mesh.shard_devices):
-        emb, sf, bias = index.shard(s)
-        with on_device(dev):
-            kk = min(k, emb.shape[0])
-            v, rows = blockmax_topk(_scores_f32(qs[s].to(emb.dtype), emb, bias), kk)
-            vals.append(v)
-            fids.append(torch.where(v > NEG_INF * 0.5, sf[rows.clamp(min=0).long()], -1))
-    mv, mf = merge_topk_across_mesh(vals, fids, int(k), mesh)
-    return mv, mf.to(torch.int32)
+    with device_span("sharded_scan.call", mesh.device):
+        q = torch.as_tensor(queries, dtype=torch.float32)
+        qs = replicate(mesh, q)
+        vals, fids = [], []
+        for s, dev in enumerate(mesh.shard_devices):
+            emb, sf, bias = index.shard(s)
+            with on_device(dev), device_span("sharded_scan.local", dev):
+                kk = min(k, emb.shape[0])
+                v, rows = blockmax_topk(_scores_f32(qs[s].to(emb.dtype), emb, bias), kk)
+                vals.append(v)
+                fids.append(torch.where(v > NEG_INF * 0.5, sf[rows.clamp(min=0).long()], -1))
+        mv, mf = merge_topk_across_mesh(vals, fids, int(k), mesh)
+        return mv, mf.to(torch.int32)
