@@ -85,11 +85,13 @@ Phases, each printing lines tagged with its name:
   shard_10m BASELINE.md's scale configuration: 10,485,760 x 768 unit rows in bf16
             (16.1 GB) drawn on the card in seeded 1M-row chunks, split over 4 shards:
             sharded_flat_scan_topk at B 256, k 10 on the flat mesh and the 2 x 2 mesh
-            (bit-equal), against one shard of the same rows on 64 queries (scores within
-            rtol 1e-6, ids equal but near-ties of the k-th score), a 1/8-grid slab of
-            1,048,576 rows bit-equal on one shard, 4 shards and 2 x 2 (and equal to the
-            float64 products); ms a batch (median of 10) on each mesh, each shard's
-            device ms and the merge's, busy share, peak memory, the synchronising calls
+            (bit-equal; 2,621,440 contiguous rows a shard take K6 + K7), against one
+            shard of the same rows on 64 queries (scores within rtol 1e-6, ids equal but
+            near-ties of the k-th score), a 1/8-grid slab of 1,048,576 rows: 4 shards
+            and 2 x 2 bit-equal (262,144 rows a shard: the f32-product route), one shard
+            (K6 + K7) with the same scores, each id's float64 product its score; ms a
+            batch (median of 10) on each mesh, each shard's K6 + K7 device ms and the
+            merge's, busy share, peak memory, the synchronising calls
             of one call at S 1, 2 and 4 (set_sync_debug_mode "warn"; they must not grow
             with S); then sharded_ivf_search_topk over [ivf_1m]'s index (kept, not
             rebuilt) on 4 slot shards: scores equal to the one-device plain probe loop
@@ -2261,16 +2263,17 @@ def shard_10m_phase(dev, seed: int, ivf: dict) -> dict:
     """[shard_10m]: BASELINE.md's scale configuration, 10,485,760 x 768 unit rows in
     bf16 (16.1 GB) split over 4 corpus shards: `sharded_flat_scan_topk` at B 256, k 10
     on the flat 4-shard mesh and the 2 x 2 two-level mesh (bit-equal), against a
-    one-shard scan of the same rows (64 queries), bit for bit on a 1/8-grid slab; the
-    synchronising calls of one call at S 1, 2 and 4; then `sharded_ivf_search_topk`
-    over [ivf_1m]'s index (`ivf`: index, queries, exact top-10) on 4 slot shards.
-    Plain torch throughout: the JAX module has no Pallas kernel here."""
+    one-shard scan of the same rows (64 queries), on a 1/8-grid slab with the same
+    scores (bit for bit between 4 shards and 2 x 2); the synchronising calls of one
+    call at S 1, 2 and 4; then `sharded_ivf_search_topk` over [ivf_1m]'s index (`ivf`:
+    index, queries, exact top-10) on 4 slot shards. Shards of 2,621,440 rows and more
+    take the chunkmax lane (K6 + K7); the slab's 262,144-row shards the f32 products."""
     import numpy as np
     import torch
 
     from wax_tpu_torch.index.ivf import ivf_search_topk
-    from wax_tpu_torch.ops.flat_scan import _scores_f32, normalize_rows
-    from wax_tpu_torch.ops.topk import blockmax_topk
+    from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk
+    from wax_tpu_torch.ops.flat_scan import normalize_rows
     from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
     from wax_tpu_torch.parallel.mesh import data_mesh, make_two_level_mesh, shard_rows
     from wax_tpu_torch.parallel.sharded_ivf import shard_ivf_index, sharded_ivf_search_topk
@@ -2315,15 +2318,20 @@ def shard_10m_phase(dev, seed: int, ivf: dict) -> dict:
     e1 = sharded_flat_scan_topk(qe, dense_over((slab,)), k, mesh1)
     e4 = sharded_flat_scan_topk(qe, ex4, k, mesh4)
     e22 = sharded_flat_scan_topk(qe, ex4, k, mesh22)
-    check(all(torch.equal(a, c) for a, c in zip(e1, e4)) and all(torch.equal(a, c) for a, c in zip(e1, e22)),
+    # one shard takes K6 + K7, whose exact ties rank by chunk: the same scores, tied ids
+    check(all(torch.equal(a, c) for a, c in zip(e4, e22)) and torch.equal(e1[0], e4[0]),
           f"{phase}: the 1/8-grid slab's answers differ between one shard, 4 shards and 2 x 2")
     want = (qe[:4].double() @ slab.double().t()).topk(k, dim=1).values.float()
     check(torch.equal(e4[0][:4], want.to(e4[0].device)), f"{phase}: the 1/8-grid scores are not the float64 products")
-    del want
+    own = torch.einsum("bd,bkd->bk", qe.double(), slab[e1[1].long()].double()).float()
+    check(torch.equal(own, e1[0]) and all(len(set(r)) == k for r in e1[1].tolist()),
+          f"{phase}: one shard's 1/8-grid ids do not score their listed scores")
+    del want, own
     del slab, ex4
     log(phase, f"checks: 2 x 2 equals the flat 4-shard mesh bit for bit (B {b}); 4 shards against one shard on 64 "
         f"queries: scores within rtol 1e-6, ids equal on {64 - differ} (the rest near-ties of the k-th score); "
-        f"a {N_EXACT_SLAB} x {d} 1/8-grid slab: one shard, 4 shards and 2 x 2 bit-equal, scores = float64 products")
+        f"a {N_EXACT_SLAB} x {d} 1/8-grid slab: 4 shards and 2 x 2 bit-equal, one shard the same scores, "
+        f"scores = float64 products")
 
     # 4. times: a batch (median of 10), each shard's device work and the merge
     ms4 = median_call_ms(lambda: sharded_flat_scan_topk(q, idx4, k, mesh4), iters=10, warmup=1)
@@ -2334,9 +2342,8 @@ def shard_10m_phase(dev, seed: int, ivf: dict) -> dict:
         e, fi, bi = idx4.shard(s_)
         with torch.cuda.device(e.device):
             qs = q.to(e.device)
-            shard_ms.append(median_call_ms(lambda: blockmax_topk(_scores_f32(qs.to(e.dtype), e, bi), k), iters=5,
-                                           warmup=1))
-            vv, rr = blockmax_topk(_scores_f32(qs.to(e.dtype), e, bi), k)
+            shard_ms.append(median_call_ms(lambda: chunkmax_scan_topk(qs, e, bi, k), iters=5, warmup=1))
+            vv, rr = chunkmax_scan_topk(qs, e, bi, k)
         lists[0].append(vv)
         lists[1].append(fi[rr.long()])
     merge_ms = median_call_ms(lambda: merge_topk_across_mesh(lists[0], lists[1], k, mesh4), iters=20)
@@ -2346,7 +2353,7 @@ def shard_10m_phase(dev, seed: int, ivf: dict) -> dict:
     busy = "not measured" if prof["busy"] is None else f"{100 * prof['busy']:.1f}%"
     log(phase, f"sharded_flat_scan_topk B {b} k {k}: 4 shards {ms4:.3f} ms a batch (median of 10, CUDA events on "
         f"{dev}), 2 x 2 {ms22:.3f} ms, one shard {ms1:.3f} ms = {b * 1e3 / ms4:.1f} queries/s on 4 shards; per "
-        f"shard (scores + blockmax top-k, median of 5) " + ", ".join(f"{t:.3f}" for t in shard_ms)
+        f"shard (K6 + K7, median of 5) " + ", ".join(f"{t:.3f}" for t in shard_ms)
         + f" ms; the merge {merge_ms:.4f} ms; bound {bms:.4f} ms ({bby}); busy {busy}")
     # 5. synchronising calls of one call, at 1, 2 and 4 shards
     syncs = {1: sync_calls(lambda: sharded_flat_scan_topk(q, idx1, k, mesh1)),

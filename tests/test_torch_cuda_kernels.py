@@ -343,6 +343,52 @@ def test_chunkmax_scan_cuda_equals_cpu(dev):
             assert torch.equal(w, gt.cpu()), k
 
 
+def test_sharded_scan_runs_k6_k7_a_card(dev):
+    """`sharded_flat_scan_topk` over the cards present, 2^20 contiguous bf16 unit rows a
+    card, B 64, k 10: one K6 launch and one count of the chunkmax route a card a call,
+    no synchronising call; the merged top-10's scores within 2e-05 of the f32-product
+    route's (`_scores_f32`, `blockmax_topk` a card, the same merge) and of each
+    returned row's own score, ten distinct ids a query."""
+    from wax_tpu_torch.ops.topk import blockmax_topk
+    from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
+    from wax_tpu_torch.parallel.mesh import data_mesh
+    from wax_tpu_torch.parallel.sharded_scan import ShardedDenseIndex, sharded_flat_scan_topk
+
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    n, d, b, k = 1 << 20, 384, 64, 10
+    emb = []
+    for c, dv in enumerate(devs):
+        g = torch.Generator(device=dv).manual_seed(100 + c)
+        emb.append(fs.normalize_rows(torch.randn((n, d), generator=g, device=dv)).to(torch.bfloat16))
+    fids = tuple(torch.arange(c * n, (c + 1) * n, dtype=torch.int32, device=e.device) for c, e in enumerate(emb))
+    bias = tuple(torch.zeros(n, device=e.device) for e in emb)
+    index = ShardedDenseIndex(emb=tuple(emb), frame_ids=fids, bias=bias, contiguous=True)
+    mesh = data_mesh(devs)
+    g = torch.Generator(device=devs[0]).manual_seed(7)
+    q = fs.normalize_rows(torch.randn((b, d), generator=g, device=devs[0])).to(torch.bfloat16).float()
+    sharded_flat_scan_topk(q, index, k, mesh)  # builds the kernels
+    for dv in devs:
+        torch.cuda.synchronize(dv)
+    k6, routed = counters().get("wax_k6_chunk_maxima", 0), counters().get("sharded_scan.chunkmax_shards", 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        v, f = sharded_flat_scan_topk(q, index, k, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert counters()["wax_k6_chunk_maxima"] == k6 + len(devs)
+    assert counters()["sharded_scan.chunkmax_shards"] == routed + len(devs)
+    lv, lf = [], []
+    for e, fi, bi in zip(emb, fids, bias):
+        rv, rr = blockmax_topk(fs._scores_f32(q.to(e.device).to(e.dtype), e, bi), k)
+        lv.append(rv)
+        lf.append(fi[rr.long()])
+    rv, _ = merge_topk_across_mesh(lv, lf, k, mesh)
+    assert f.shape == (b, k) and bool((f >= 0).all()) and all(len(set(r)) == k for r in f.tolist())
+    assert float((v - rv).abs().max()) <= 2e-5
+    own = torch.stack([emb[i // n][i % n].to(devs[0]).float() for i in f.flatten().tolist()]).reshape(b, k, d)
+    assert float((torch.einsum("bd,bkd->bk", q, own) - v).abs().max()) <= 2e-5
+
+
 def _fwd_rows(g, n, l, width, layout, vocab):
     """n forward rows of l lanes holding each term at most once in their first `width`
     lanes: "holes" (a random term per lane, 30% of lanes -1 anywhere) or "packed"

@@ -9,6 +9,8 @@ numpy inputs go through both packages:
 * the merge: JAX's tie order (slice, data shard, local order), two-level = flat;
 * `sharded_flat_scan_topk`: frame ids equal and scores within rtol 1e-6 on random
   data, bit-equal on exact-arithmetic data (entries k/4), uneven row counts included;
+  its chunkmax route (K6 + K7's twins, the row floor lowered) on every mesh, and the
+  shards it leaves on the blockmax body (tombstones, unaligned rows, k > 100);
 * `sharded_ivf_search_topk` on JAX's own `IVFIndex` arrays, spilled and not: scores
   within rtol 1e-6 of JAX's, frame ids equal on exact-arithmetic data.
 """
@@ -31,7 +33,9 @@ from wax_tpu_torch.index.ivf import ivf_index_from_numpy, ivf_search_topk
 from wax_tpu_torch.parallel import mesh as tmesh
 from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
 from wax_tpu_torch.parallel.sharded_ivf import shard_ivf_index, sharded_ivf_search_topk
+from wax_tpu_torch.parallel import sharded_hybrid, sharded_scan
 from wax_tpu_torch.parallel.sharded_scan import shard_dense_index, sharded_flat_scan_topk
+from wax_tpu_torch.utils.profiling import counters
 
 CPU8 = ["cpu"] * 8
 MESHES = {
@@ -200,6 +204,80 @@ def test_sharded_scan_k_beyond_shard_rows():
     tv, tf = sharded_flat_scan_topk(torch.zeros((2, D)) + 0.1, shard_dense_index(tsnap, tm), 40, tm)
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     assert (tf.numpy()[:, 24:] == -1).all()
+
+
+def _chunkmax_shards() -> int:
+    return counters().get("sharded_scan.chunkmax_shards", 0)
+
+
+def _scan_pair(vecs, q, k, name, remove=(), similarity=Similarity.COSINE):
+    """JAX's sharded scan and the port's on mesh `name`, and the port's chunkmax
+    shards in its call."""
+    jsnap, tsnap = _dense_pair(vecs, remove=remove, similarity=similarity)
+    jm, tm = _meshes(name)
+    jv, jf = jax_scan(jnp.asarray(q), jax_shard_dense(jsnap, jm), k, jm)
+    tsh = shard_dense_index(tsnap, tm)
+    before = _chunkmax_shards()
+    tv, tf = sharded_flat_scan_topk(torch.from_numpy(q), tsh, k, tm)
+    return (np.asarray(jv), np.asarray(jf)), (tv.numpy(), tf.numpy()), tsh, _chunkmax_shards() - before
+
+
+def _assert_equal_up_to_exact_ties(vecs, q, got, want):
+    """Exact-arithmetic rows: scores bit-equal; every id returned scores exactly its
+    listed score; each run of equal scores holds the same ids, save the run at the k-th
+    score, whose rows may be any of those tied there. (K7 ranks tied rows by their
+    chunk's rank, JAX's blockmax by row.)"""
+    (tv, tf), (jv, jf) = got, want
+    np.testing.assert_array_equal(tv, jv)
+    assert (tf >= 1).all() and all(len(set(r)) == len(r) for r in tf)
+    np.testing.assert_array_equal(np.einsum("bd,bkd->bk", q.astype(np.float64), vecs[tf - 1].astype(np.float64)), tv)
+    for b in range(len(tv)):
+        for s in set(tv[b]) - {tv[b, -1]}:
+            assert set(tf[b][tv[b] == s]) == set(jf[b][jv[b] == s]), (b, s)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+@pytest.mark.parametrize("data", ["random", "exact"])
+def test_sharded_scan_chunkmax_route_equals_jax(name, data, monkeypatch):
+    """16,384 contiguous rows with the row floor lowered to 2,048: every shard (2,048 or
+    4,096 local rows) takes K6 + K7's twins, one count a shard. Random rows (cosine): ids
+    equal to JAX's XLA scan, scores within rtol 1e-6. Exact-arithmetic rows (dot
+    product, many exact ties): scores bit-equal, ids equal up to the order of exact
+    ties and the choice among rows tied at the k-th score."""
+    monkeypatch.setattr(sharded_scan, "_CHUNKMAX_MIN_LOCAL_ROWS", 2048)
+    rng = np.random.default_rng(11)
+    vecs = _exact(16384, 12) if data == "exact" else rng.standard_normal((16384, D)).astype(np.float32)
+    q = _exact(16, 13) if data == "exact" else rng.standard_normal((16, D)).astype(np.float32)
+    sim = Similarity.DOT if data == "exact" else Similarity.COSINE
+    (jv, jf), (tv, tf), tsh, routed = _scan_pair(vecs, q, K, name, similarity=sim)
+    assert tsh.contiguous and tsh.local_rows % 2048 == 0 and routed == tsh.n_shards
+    if data == "exact":
+        _assert_equal_up_to_exact_ties(vecs, q, (tv, tf), (jv, jf))
+    else:
+        np.testing.assert_array_equal(tf, jf)
+        np.testing.assert_allclose(tv, jv, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("case", ["tombstoned", "unaligned", "k101"])
+def test_sharded_scan_blockmax_shards_unchanged(case, monkeypatch):
+    """Shards the chunkmax route does not take keep the blockmax body: a tombstoned
+    index, 1,024 local rows (the floor lowered to 1,024, rows not a multiple of 2,048),
+    and k 101. No shard is counted; ids equal to JAX's, scores within rtol 1e-6."""
+    monkeypatch.setattr(sharded_scan, "_CHUNKMAX_MIN_LOCAL_ROWS", 1024)
+    rng = np.random.default_rng(21)
+    n = 8192 if case == "unaligned" else 16384
+    vecs, q = rng.standard_normal((n, D)).astype(np.float32), rng.standard_normal((16, D)).astype(np.float32)
+    k = 101 if case == "k101" else K
+    (jv, jf), (tv, tf), tsh, routed = _scan_pair(vecs, q, k, "flat8", remove=(5, 17) if case == "tombstoned" else ())
+    assert routed == 0 and tsh.contiguous == (case != "tombstoned")
+    assert tsh.local_rows == (1024 if case == "unaligned" else 2048)
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_allclose(tv, jv, rtol=1e-6, atol=0)
+
+
+def test_sharded_scan_chunkmax_floor_pinned_to_the_hybrid_lane():
+    """The two sharded dense routes take chunkmax from the same local row count."""
+    assert sharded_scan._CHUNKMAX_MIN_LOCAL_ROWS == sharded_hybrid._CHUNKMAX_MIN_LOCAL_ROWS == 524_288
 
 
 # --------------------------------------------------------------------------------- IVF

@@ -93,13 +93,19 @@ def test_counters_add_and_reset():
     assert profiling.counters()["test.count"] == before + 3
 
 
-@pytest.mark.parametrize("cell,call,children", [
-    ("flat_msmarco1.b256", "flat_scan.call", ["chunkmax.k6", "chunkmax.select", "chunkmax.rescore"]),
-    ("shard_msmarco2.b64", "sharded_scan.call", ["sharded_scan.local"] * 4 + ["merge.across_mesh"]),
+CHUNKMAX_SPANS = ["chunkmax.k6", "chunkmax.select", "chunkmax.rescore"]
+
+
+@pytest.mark.parametrize("cell,call,children,grandchildren", [
+    ("flat_msmarco1.b256", "flat_scan.call", CHUNKMAX_SPANS, {}),
+    ("shard_msmarco2.b64", "sharded_scan.call", ["sharded_scan.local"] * 4 + ["merge.across_mesh"],
+     {"sharded_scan.local": CHUNKMAX_SPANS}),
 ])
-def test_span_window_records_each_batch(cell, call, children, monkeypatch):
+def test_span_window_records_each_batch(cell, call, children, grandchildren, monkeypatch):
     """A small traced run: one top-level span a span-window batch, each with the path's
-    children under it in one request; off the card the span metrics are left out."""
+    children under it in one request, and their own children (the shard cell's 1,048,576
+    contiguous rows a card take the chunkmax lane); off the card the span metrics are
+    left out."""
     seen = []
     read = tracing.read_metrics
 
@@ -117,7 +123,10 @@ def test_span_window_records_each_batch(cell, call, children, monkeypatch):
     for top in tops:
         kids = [s for s in ctx.spans if s.parent == top.id]
         assert [s.name for s in kids] == children and {s.request for s in kids} == {top.request}
-    assert len(ctx.spans) == ctx.span_batches * (1 + len(children))
+        for kid in kids:
+            assert [s.name for s in ctx.spans if s.parent == kid.id] == grandchildren.get(kid.name, [])
+    nested = sum(len(grandchildren.get(c, [])) for c in children)
+    assert len(ctx.spans) == ctx.span_batches * (1 + len(children) + nested)
     assert spans.on_device(ctx) is None and spans.lead_card(ctx) is None
 
 
