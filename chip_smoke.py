@@ -1780,13 +1780,84 @@ def _k8_cases(lex, tids, results):
                   cuda_ms(lambda: k8._candidate_scores_plain(tids, rows, wn, offs, idf, q2, w2, "any", sel), iters=5),
                   _k8_bound(tids, offs, idf, q2, w2, sel))
         g = k8.device_plan(b, q2, w2, sel, rows.device)["g"]
-        log("exact_30k", f"K8 sel {sel} (`any`, plan G {g}; G 2 and B {b // 8} at G "
+        walk = "postings in merge order" if sel else "row tiles"
+        log("exact_30k", f"K8 sel {sel} ({walk}; `any`, plan G {g}; G 2 and B {b // 8} at G "
             f"{k8.device_plan(b // 8, q2, w2, sel, rows.device)['g']} also bit-equal): {t[sel][0]:.4f} ms, plain "
             f"{t[sel][1]:.4f} ms, bound "
             f"{t[sel][2][0]:.4f} ms ({t[sel][2][1]}: {t[sel][2][2]} postings read, {t[sel][2][3] / 1e9:.4f} GB "
             "written)")
     results["K8"] = dict(max_abs_err=0.0, ms=t[0][0], plain_ms=t[0][1], library_ms=None, bound_ms=t[0][2][0],
                          bound_by=t[0][2][1])
+
+
+def zipf_postings(dev, n_rows: int = 9_000_000, terms: int = 400, cap: int = 131_072, seed: int = 0):
+    """(rows, wnorm, offsets, idf): term slices over n_rows rows at hybrid_msmarco1.b256's
+    density, drawn on `dev`: term t holds about min(cap, 2.3e7 / (t + 1)) rows drawn
+    uniformly (so the first ~175 terms are cut to the budget), rows ascending; random
+    weights, a tenth tombstoned (0)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    slices = []
+    for t in range(terms):
+        df = min(cap, int(2.3e7 / (t + 1)))
+        r = torch.nonzero(torch.rand(n_rows, generator=g, device=dev) < df / n_rows).flatten()[:cap]
+        slices.append(r.to(torch.int32))
+    rows = torch.cat(slices)
+    offsets = torch.zeros(terms + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(torch.tensor([len(x) for x in slices], device=dev), 0)
+    wn = torch.rand(rows.shape[0], generator=g, device=dev)
+    wn[torch.rand(rows.shape[0], generator=g, device=dev) < 0.1] = 0.0
+    idf = torch.rand(terms, generator=g, device=dev) + 0.5
+    return rows, wn, offsets.to(torch.int32), idf
+
+
+def zipf_queries(rng, b: int, terms: int = 400):
+    """[b, 16] i32 numpy term ids for `zipf_postings`: 1 + Binomial(15, 1/3) distinct
+    Zipf(1) terms a query, -1 padded."""
+    import numpy as np
+
+    p = 1.0 / np.arange(1, terms + 1)
+    tids = np.full((b, 16), -1, np.int32)
+    for i in range(b):
+        n = 1 + rng.binomial(15, 1 / 3)
+        tids[i, :n] = rng.choice(terms, n, replace=False, p=p / p.sum())
+    return tids
+
+
+def _k8_hybrid_case(dev, results: dict) -> None:
+    """K8's selection mode at hybrid_msmarco1.b256's shape and density (256 queries of
+    Q2 16 x W2 262,144 over about 9M row ids, `zipf_postings`): bit-equal to its plain
+    twin (per 16 queries) in every mode at the plan's G and at G 1, and timed."""
+    import numpy as np
+    import torch
+
+    from wax_tpu_torch.ops import bm25_candidates_pallas as k8
+
+    t0 = time.perf_counter()
+    rows, wn, offs, idf = zipf_postings(dev)
+    tids = torch.from_numpy(zipf_queries(np.random.default_rng(0), 256)).to(dev)
+    max_df = int((offs[1:] - offs[:-1]).max())
+    q2, w2, sel = 16, k8.dma_window(max_df), 3
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    for mode in ("any", "all", "count"):
+        want = [k8._candidate_scores_plain(tids[i:i + 16], rows, wn, offs, idf, q2, w2, mode, sel)
+                for i in range(0, tids.shape[0], 16)]
+        want = [torch.cat(x, 0) for x in zip(*want)]
+        for split in (None, 1):
+            got = k8.candidate_scores_pallas(tids, rows, wn, offs, idf, max_df=max_df, mode=mode, sel=sel, split=split)
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"K8 at the hybrid cell's density ({mode}, G {split or 'plan'}) differs from its plain twin")
+        del got, want
+    g = k8.device_plan(tids.shape[0], q2, w2, sel, dev)["g"]
+    ms = queued_ms(lambda: k8.candidate_scores_pallas(tids, rows, wn, offs, idf, max_df=max_df, sel=sel), iters=10)
+    bound_ms, bound_by, n_read, out_bytes = _k8_bound(tids, offs, idf, q2, w2, sel)
+    results["K8"]["hybrid"] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "plan_g": g}
+    log("exact_30k", f"K8 sel {sel} at the hybrid cell's density (postings in merge order; {tids.shape[0]} queries x "
+        f"Q2 {q2} x W2 {w2}, {rows.numel()} postings over {int(rows.max()) + 1} rows, drawn in {draw_s:.1f} s; "
+        f"bit-equal to its plain twin per 16 queries, modes any/all/count, at plan G {g} and at G 1): {ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {n_read} postings read, {out_bytes / 1e9:.4f} GB written)")
 
 
 def exact_30k_phase(dev, seed: int, results: dict) -> dict:
@@ -1928,6 +1999,7 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     log("exact_30k", f"checks: fused ids equal to the plain program on a CPU copy for {sum(same)}/{nq} queries")
 
     _k8_cases(lex, tids0, results)
+    _k8_hybrid_case(dev, results)
     log("exact_30k", f"phase seconds {time.perf_counter() - t_phase:.1f}")
     launches["K8"] += fused_launches["K8"]
     return launches

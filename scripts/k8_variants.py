@@ -1,39 +1,45 @@
 #!/usr/bin/env python3
 """Build variants of the port's K8 kernel and time them on one NVIDIA GPU.
 
-    python3 scripts/k8_variants.py [--sass] [--out DIR] [--extra NAME=DIR ...]
+    python3 scripts/k8_variants.py [--sass] [--out DIR] [--only NAME,...] [--extra NAME=DIR ...]
 
 Each variant is a copy of wax_tpu_torch/csrc/bm25_candidates.cu with `constexpr int`
 knobs at its top changed or a span of its body replaced (an edit that no longer applies
-raises: update `EDITS` with the kernel): the sentinel stores' pace (`fill0`: all before
-the walk; `fill1`, `fill3`: 1 or 3 rounds a walk step, the kept body 2), the postings a
-thread holds a batch (`items1`, `items4`, `items4_fill1`; the kept body 2), the CTA size
-(`t512`: 512 threads, two CTAs an SM; `t512_1`: one, with 128 registers a thread),
-`fixed` (CTA g owns the g-th of G equal row spans in place of the merge-path share of
-the postings), `scalar` (4-byte sentinel stores in place of 16-byte ones), `rowwrite`
-(each thread writes its row's run of posting positions, in place of a warp's coalesced
-stores over its 32 rows' runs), `merge2` (the sel merge of the G CTAs' lists in a second
-launch in place of the query's last CTA), the chunks staged a selection round
-(`stage1`, `stage4`; the kept body 8), and the ablations `abl_nofill` (no sentinel
+raises: update `EDITS` with the kernel). The row-tile walk (sel 0): the sentinel stores'
+pace (`fill0`: all before the walk; `fill1`, `fill3`: 1 or 3 rounds a walk step, the
+kept body 2), the postings a thread holds a batch (`items1`, `items4`, `items4_fill1`;
+the kept body 2), `scalar` (4-byte sentinel stores in place of 16-byte ones),
+`rowwrite` (each thread writes its row's run of posting positions, in place of a warp's
+coalesced stores over its 32 rows' runs) and the ablations `abl_nofill` (no sentinel
 stores), `abl_nowrite` (no posting positions written) and `abl_noacc` (no postings
-loaded or added), whose outputs are wrong and are not checked.
+loaded or added), whose outputs are wrong and are not checked. Both walks: `fixed`
+(CTA g owns the g-th of n equal row spans in place of the merge-path share of the
+postings). The postings walk (sel > 0): the postings a CTA owns at least (`walk32k`,
+`walk128k`; the kept body 65,536), the postings a window and its buckets (`tw2048`,
+`nb8192`; the kept body 4,096 and 4,096), at least 32 postings a slot a window
+(`minw32`; the kept body 1), and `prof`, the postings walk's phases in clock64 cycles
+(`PROF_PHASES`; timed, but distorted by its counters).
 The kept body also runs at forced G (`kept@G`: CTAs a query, the wrapper's `split`).
 `--extra NAME=DIR` adds another bm25_candidates.cu as it stands in DIR (a parent
-commit's, unpacked with git archive into a git-ignored directory), called through its
-own C entry (the parent's has no scratch, tickets or G).
+commit's, unpacked with git archive into a git-ignored directory), called through the
+same C entry.
 
-Inputs (each built here from `chip_smoke.make_corpus`'s Zipf documents and queries, with
-the port's `LexIndexBuilder`, exact postings):
+Inputs (built here from `chip_smoke.make_corpus`'s Zipf documents and queries, with the
+port's `LexIndexBuilder`, exact postings; the last drawn on the card):
   * `orch_sharded`: [orch_sharded]'s shard shape: one shard of 25,600 documents, one
     query padded to 16 slots (Q2 16 x W2 32,768, a 4 MiB plane), mode `all`, sel 0;
   * `orch_sharded_sel3`: the same query, `any`, sel 3 (G CTAs' lists merged);
   * `exact_30k`: 30,720 documents, 256 serving queries (Q2 16 x W2 32,768), `any`, sel 0;
-  * `exact_30k_sel3`: the same, sel 3 (the rescore fetch).
-Every variant is checked bit for bit against the plain twin at each input, then timed
-with CUDA events around 50 calls queued behind a sleep kernel (`chip_smoke.queued_ms`);
-the kept body and the parent run first and last. ptxas's registers and spills are
-printed per variant. Times move by a few percent with their place in a run: compare
-within one run.
+  * `exact_30k_sel3`: the same, sel 3 (the rescore fetch);
+  * `hybrid_sel3`: hybrid_msmarco1.b256's shape, 256 queries of 1-16 Zipf terms over
+    about 9M row ids, slices cut to 131,072 (Q2 16 x W2 262,144; `chip_smoke.zipf_postings`
+    and `zipf_queries`), `any`, sel 3; `hybrid_sel3_b1`, `hybrid_sel3_b16`: its first 1
+    and 16 queries.
+Every variant is checked bit for bit against the plain twin at each input (the
+hybrid one per 16 queries), then timed with CUDA events around 50 calls (10 at the
+hybrid input) queued behind a sleep kernel (`chip_smoke.queued_ms`); the kept body and
+the parent run first and last. ptxas's registers and spills are printed per variant.
+Times move by a few percent with their place in a run: compare within one run.
 """
 from __future__ import annotations
 
@@ -59,77 +65,91 @@ VARIANTS = {
     "items1": {"ITEMS": 1},
     "items4": {"ITEMS": 4},
     "items4_fill1": {"ITEMS": 4, "FILL_STEP": 1},
-    "t512": {"THREADS": 512, "MIN_CTAS": 2},
-    "t512_1": {"THREADS": 512, "MIN_CTAS": 1},
     "fixed": {"edit": "fixed"},
     "scalar": {"VEC_FILL": 0},
     "rowwrite": {"edit": "rowwrite"},
-    "merge2": {"edit": "merge2"},
-    "stage1": {"STAGE_CH": 1},
-    "stage4": {"STAGE_CH": 4},
+    "walk32k": {"WALK_MIN": 32768},
+    "walk128k": {"WALK_MIN": 131072},
+    "tw2048": {"TW": 2048, "NB": 2048},
+    "nb8192": {"NB": 8192},
+    "minw32": {"edit": "minw32"},
+    "prof": {"edit": "prof"},
     "abl_nofill": {"edit": "nofill"},
     "abl_nowrite": {"edit": "nowrite"},
     "abl_noacc": {"edit": "noacc"},
 }
 # the kept body's spans that the variants replace: (start, end) markers, the end kept
 SEARCH = ("  // (NC+1)-ary search for x", "  // the CTA's range, from its bounds' lower_bounds\n")
-FIXED = """  // fixed row ranges: G equal spans of [rmin, rmax]
-  if (tid < 2 && (tid ? act1 : act0))
-    sh_lo[tid] = sh_rmin + (int)(((long long)sh_rmax + 1 - sh_rmin) * (g + tid) / G);
+FIXED = """  // fixed row ranges: n equal spans of [rmin, rmax]
+  if (tid < 2 && (tid ? act1 : act0)) sh.lo[tid] = q.rmin + (int)(((long long)q.rmax + 1 - q.rmin) * (g + tid) / n);
   __syncthreads();
   for (int i = tid; i < 2 * Q2; i += THREADS) {
     const int k = i / Q2, s = i % Q2;
     if (!(k ? act1 : act0)) continue;
-    const int v = lower_bound(rows, s_a[s], s_a[s] + s_n[s], sh_lo[k]);
+    const int v = lower_bound(rows, s_a[s], s_a[s] + s_n[s], sh.lo[k]);
     p_lo[k * 2 * Q2 + s] = v;
-    atomicAdd(&sh_f[k], v - s_a[s]);
+    atomicAdd(&sh.f[k], v - s_a[s]);
   }
   __syncthreads();
 """
-WARP_WRITE = ("    if (sel == 0) {\n      // warp w writes the runs", "    } else if (tile_total > 0) {\n")
-ROW_WRITE = """    if (sel == 0) {
-      for (int r = tid; r < width; r += THREADS) {
-        const int incl = cnt[r];
-        const int c = incl - (r ? cnt[r - 1] : 0);
-        if (c == 0) continue;
-        const size_t o = plane0 + base + incl - c;
-        for (int i = 0; i < c - 1; ++i) {
-          out_rows[o + i] = -1;
-          out_scores[o + i] = NEG_INF;
-        }
-        const float sum = acc[r];
-        const bool live = sum > 0.f && (mode != MODE_ALL || c >= nterm);
-        out_rows[o + c - 1] = live ? t0 + r : -1;
-        out_scores[o + c - 1] = !live ? NEG_INF : mode == MODE_COUNT ? __fadd_rn(sum, 4096.f * (float)c) : sum;
+WARP_WRITE = ("    // warp w writes the runs", "    for (int s = tid; s < Q2; s += THREADS) s_cur[s] = s_hi[s];\n")
+ROW_WRITE = """    for (int r = tid; r < width; r += THREADS) {
+      const int incl = cnt[r];
+      const int c = incl - (r ? cnt[r - 1] : 0);
+      if (c == 0) continue;
+      const size_t o = plane0 + base + incl - c;
+      for (int i = 0; i < c - 1; ++i) {
+        out_rows[o + i] = -1;
+        out_scores[o + i] = NEG_INF;
       }
+      const float sum = acc[r];
+      const bool live = sum > 0.f && (mode != MODE_ALL || c >= nterm);
+      out_rows[o + c - 1] = live ? t0 + r : -1;
+      out_scores[o + c - 1] = !live ? NEG_INF : mode == MODE_COUNT ? __fadd_rn(sum, 4096.f * (float)c) : sum;
+    }
 """
-# merge2: the CTAs end after their lists; a second launch merges them
-TICKET = "  __threadfence();\n  __syncthreads();\n  if (tid == 0) sh_last = atomicAdd(&tickets[b], 1) == G - 1;\n"
-MERGE_KERNEL = """__global__ void __launch_bounds__(THREADS, 1)
-k8_merge(const int32_t* __restrict__ part, int32_t* __restrict__ out_rows, int32_t* __restrict__ out_keys,
-         int G, int sel) {
-  merge_lists(part, out_rows, out_keys, blockIdx.x, G, sel);
-}
-
-"""
-LAUNCH_END = "  return (int)cudaGetLastError();\n}\n\n// K8's launch for B"
-MERGE_LAUNCH = """  cudaError_t e2 = cudaGetLastError();
-  if (e2 != cudaSuccess || !sel || G == 1) return (int)e2;
-  k8_merge<<<B, THREADS, 0, stream>>>(part, out_rows, out_keys, G, sel);
-  return (int)cudaGetLastError();
-}
-
-// K8's launch for B"""
+# prof: clock64 cycles of the postings walk's phases on each CTA's thread 0, summed over
+# the CTAs into k8_prof (read by k8_prof_read): setup and search, wait for the window,
+# warp 0's bookkeeping, the next window's copies issued, bucket counts, their scan, the
+# scatter, the ranks, the leaders, the selection; then windows and ready postings
+PROF_PHASES = ("setup+search", "wait", "bookkeeping", "issue", "count", "scan", "scatter", "rank", "leaders",
+               "select", "windows", "ready")
+PROF = [
+    ("sub", "#include <limits.h>\n", "#include <limits.h>\n__device__ unsigned long long k8_prof[12];\n"
+     "#define PROF(k) do { if (threadIdx.x == 0) { const long long t_ = clock64(); prof_acc[k] += t_ - prof_t; "
+     "prof_t = t_; } } while (0)\n"),
+    ("sub", "  const int nterm = q.nterm, P = q.p;\n",
+     "  const int nterm = q.nterm, P = q.p;\n  long long prof_t = clock64();\n  unsigned long long prof_acc[12] = {};\n"),
+    ("sub", "  for (int cb = 0;; cb ^= 1) {\n", "  PROF(0);\n  for (int cb = 0;; cb ^= 1) {\n"),
+    ("sub", "    if (wo[Q2] == 0) break;  // nothing left\n",
+     "    if (wo[Q2] == 0) break;  // nothing left\n    PROF(1);\n"),
+    ("sub", "    issue_window(rows, wnorm, win_row + nb * TW",
+     "    PROF(2);\n    issue_window(rows, wnorm, win_row + nb * TW"),
+    ("sub", "    // counting sort of the ready postings", "    PROF(3);\n    // counting sort of the ready postings"),
+    ("sub", "    block_scan<NB / THREADS>(bkt, NB, warp_tot);",
+     "    PROF(4);\n    block_scan<NB / THREADS>(bkt, NB, warp_tot);"),
+    ("sub", "    // ... window indices scattered", "    PROF(5);\n    // ... window indices scattered"),
+    ("sub", "    // ... each posting's rank", "    PROF(6);\n    // ... each posting's rank"),
+    ("sub", "    // leaders: the last of each run", "    PROF(7);\n    // leaders: the last of each run"),
+    ("sub", "    // thread p takes the window's positions", "    PROF(8);\n    // thread p takes the window's positions"),
+    ("sub", "    base += R;\n", "    base += R;\n    PROF(9);\n    prof_acc[10] += 1;\n    prof_acc[11] += R;\n"),
+    ("sub", "  if (n == 1) {\n    finish_list", "  if (threadIdx.x == 0)\n    for (int k = 0; k < 12; ++k) "
+     "atomicAdd(&k8_prof[k], prof_acc[k]);\n  if (n == 1) {\n    finish_list"),
+    ("sub", "}  // extern \"C\"\n", "int k8_prof_read(unsigned long long* out) {\n  return (int)cudaMemcpyFromSymbol"
+     "(out, k8_prof, sizeof(k8_prof));\n}\nint k8_prof_reset() {\n  unsigned long long z[12] = {};\n  return (int)"
+     "cudaMemcpyToSymbol(k8_prof, z, sizeof(z));\n}\n}  // extern \"C\"\n"),
+]
 # ablations ("abl_"): their outputs are wrong by design and are not checked
 EDITS = {
+    "minw32": [("sub", "min(rem, 1 + (int)((long long)(TW - Q2) * rem / left))",
+                "min(rem, 32 + (int)((long long)(TW - 32 * Q2) * rem / left))")],
+    "prof": PROF,
     "fixed": [("cut", SEARCH, FIXED)],
     "rowwrite": [("cut", WARP_WRITE, ROW_WRITE)],
-    "merge2": [("sub", TICKET, "  return;\n" + TICKET), ("sub", "// G CTAs a query: enough", MERGE_KERNEL +
-                                                          "// G CTAs a query: enough"),
-               ("sub", LAUNCH_END, MERGE_LAUNCH)],
-    "nofill": [("sub", "  if (sel == 0) {  // this CTA's share", "  if (false) {  // this CTA's share")],
-    "nowrite": [("sub", "    if (sel == 0) {\n      // warp w writes the runs",
-                 "    if (sel == 0) {\n    } else if (false) {\n      // warp w writes the runs")],
+    "nofill": [("sub", "  {  // this CTA's share of the sentinel prefix and suffix: the edges now",
+                "  if (tid < 4) sh_fill[tid] = 0;\n  if (false) {  // this CTA's share")],
+    "nowrite": [("sub", "for (int r0 = warp * 32; r0 < width; r0 += THREADS) {",
+                 "for (int r0 = warp * 32; r0 < 0; r0 += THREADS) {")],
     "noacc": [("sub", "    for (int k0 = 0; k0 < tile_total; k0 += THREADS * ITEMS) {",
                "    for (int k0 = 0; k0 < 0; k0 += THREADS * ITEMS) {")],
 }
@@ -146,7 +166,7 @@ def _cut(text: str, span: tuple, new: str) -> str:
 
 
 FORCED_G = {"orch_sharded": (1, 8, 33, 66, 264), "orch_sharded_sel3": (1, 33), "exact_30k": (2, 4),
-            "exact_30k_sel3": (2,)}
+            "exact_30k_sel3": (2,), "hybrid_sel3": (16, 64), "hybrid_sel3_b1": (32,), "hybrid_sel3_b16": (32,)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 NEW_SIG = [_P] * 10 + [_I] * 7 + [_P]
 OLD_SIG = [_P] * 8 + [_I] * 6 + [_P]
@@ -197,6 +217,12 @@ def inputs(dev):
             out[label + "_sel3"] = (*args, "any", 3)
         lines.append(f"{label}: {n_docs} documents, {lex.doc_rows.numel()} postings, max_df {int(lex.max_df)}, "
                      f"B {tq.shape[0]}, {int((tq >= 0).sum())} query terms")
+    rows, wn, offs, idf = chip_smoke.zipf_postings(dev)
+    tq = torch.from_numpy(chip_smoke.zipf_queries(np.random.default_rng(0), 256)).to(dev)
+    out["hybrid_sel3"] = (tq, rows, wn, offs, idf, int((offs[1:] - offs[:-1]).max()), "any", 3)
+    for b in (1, 16):  # the same postings at small batches: the first b queries
+        out[f"hybrid_sel3_b{b}"] = (tq[:b].contiguous(), *out["hybrid_sel3"][1:])
+    lines.append(f"hybrid_sel3: {out['hybrid_sel3'][1].numel()} postings, max_df {out['hybrid_sel3'][5]}, B 256")
     return out, "; ".join(lines)
 
 
@@ -246,7 +272,9 @@ def run(libs: dict, dev) -> None:
     for label, case in cases.items():
         tids, rows, wn, offs, idf, max_df, mode, sel = case
         q2, w2 = 16, k8.dma_window(max_df)
-        want = k8._candidate_scores_plain(tids, rows, wn, offs, idf, q2, w2, mode, sel)
+        want = [k8._candidate_scores_plain(tids[i:i + 16], rows, wn, offs, idf, q2, w2, mode, sel)
+                for i in range(0, tids.shape[0], 16)]
+        want = [torch.cat(x, 0) for x in zip(*want)]
         runs = [(name, None) for name in libs] + [("kept", g) for g in FORCED_G[label]]
         for name, g in runs:
             if name.startswith("abl_"):
@@ -254,12 +282,26 @@ def run(libs: dict, dev) -> None:
             got = call(name, case, g)
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
                 raise RuntimeError(f"{name} (G {g}, {label}): differs from the plain twin")
+        if "prof" in libs and sel:
+            lib = libs["prof"]
+            got = (ctypes.c_ulonglong * 12)()
+            lib.k8_prof_reset()
+            call("prof", case)
+            torch.cuda.synchronize()
+            lib.k8_prof_read(ctypes.cast(got, ctypes.c_void_p))
+            cyc = list(got)
+            total = sum(cyc[:10]) or 1
+            print(f"{label} prof (thread 0's cycles, share of the CTAs' sum): "
+                  + "; ".join(f"{k} {100 * c / total:.1f}%" for k, c in zip(PROF_PHASES[:10], cyc[:10]))
+                  + f"; {cyc[10]} windows, {cyc[11] / max(cyc[10], 1):.1f} ready postings a window, "
+                  f"{total / max(cyc[10], 1):.0f} cycles a window", flush=True)
         plans = {name: plan(name, tids.shape[0], q2, w2, sel) for name in new}
         print(f"{label} plans (G, threads, tile, CTAs an SM): "
               + "; ".join(f"{n} {p[0]}, {p[1]}, {p[2]}, {p[3]}" for n, p in plans.items()), flush=True)
         order = runs + [(n, None) for n in reversed(list(libs)) if n in ("kept", "parent")]
-        parts = [f"{name}{'' if g is None else f'@{g}'} {chip_smoke.queued_ms(lambda: call(name, case, g)):.4f}"
-                 for name, g in order]
+        iters = 10 if label.startswith("hybrid") else 50
+        parts = [f"{name}{'' if g is None else f'@{g}'} "
+                 f"{chip_smoke.queued_ms(lambda: call(name, case, g), iters=iters):.4f}" for name, g in order]
         bound_ms, bound_by, n_read, out_bytes = chip_smoke._k8_bound(tids, offs, idf, q2, w2, sel)
         print(f"{label} (ms; bound {bound_ms:.6f} by {bound_by}: {n_read} postings, {out_bytes} bytes written): "
               + "; ".join(parts), flush=True)
@@ -270,6 +312,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(REPO / "wax_tpu_torch" / "_build" / "k8_variants"))
     ap.add_argument("--sass", action="store_true", help="print each kernel's commonest SASS opcodes")
     ap.add_argument("--extra", action="append", default=[], help="NAME=DIR holding another bm25_candidates.cu")
+    ap.add_argument("--only", default="", help="the variants to build, comma-separated (default: all)")
     args = ap.parse_args(argv)
     kv.SASS = args.sass
     import torch
@@ -282,7 +325,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
-    sources = {name: (source(knobs), SRC) for name, knobs in VARIANTS.items()}
+    only = set(filter(None, args.only.split(","))) | {"kept"}
+    sources = {name: (source(knobs), SRC) for name, knobs in VARIANTS.items() if not args.only or name in only}
     for spec in args.extra:
         name, path = spec.split("=", 1)
         sources[name] = ((Path(path) / "bm25_candidates.cu").read_text(), Path(path))

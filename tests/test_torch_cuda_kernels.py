@@ -705,7 +705,7 @@ def test_k8_orch_sharded_shape(dev, sel):
     args = [torch.from_numpy(a).to(dev) for a in (rows, wn, offsets, idf)]
     tq = torch.from_numpy(rng.choice(t, (1, 16), replace=False).astype(np.int32)).to(dev)
     plan = k8.device_plan(1, 16, 32_768, sel, dev)
-    assert plan["g"] == k8.launch_plan(1, 16, 32_768, plan["sms"], plan["ctas_per_sm"])["g"] > 1
+    assert plan["g"] == k8.launch_plan(1, 16, 32_768, plan["sms"], plan["ctas_per_sm"], sel)["g"] > 1
     for mode in ("all", "any"):
         want = k8._candidate_scores_plain(tq, *args, 16, 32_768, mode, sel)
         for split in (None, 1):
@@ -716,14 +716,44 @@ def test_k8_orch_sharded_shape(dev, sel):
 
 def test_k8_launch_plans(dev):
     """The C plan (`wax_k8_plan`) is `launch_plan` at the card's SMs and CTAs an SM:
-    G fills the card at small B and is 1 once B does."""
+    at sel 0 G fills the card at small B and is 1 once B does; at sel > 0 it covers
+    Q2 slices of W2 / 2 postings at WALK_MIN a CTA."""
     for b in (1, 2, 13, 64, 131, 132, 256, 4096):
-        for q2, w2 in ((16, 32_768), (4, 2048), (2, 2048), (1024, 2048), (64, 65_536)):
+        for q2, w2 in ((16, 32_768), (4, 2048), (2, 2048), (1024, 2048), (64, 65_536), (16, 262_144)):
             for sel in (0, 3):
                 plan = k8.device_plan(b, q2, w2, sel, dev)
-                mirror = k8.launch_plan(b, q2, w2, plan["sms"], plan["ctas_per_sm"])
+                mirror = k8.launch_plan(b, q2, w2, plan["sms"], plan["ctas_per_sm"], sel)
                 assert {key: plan[key] for key in mirror} == mirror, (b, q2, w2, sel, plan)
                 assert plan["ctas_per_sm"] >= 1 and plan["smem_bytes"] <= 232_448
+
+
+@pytest.mark.parametrize("b", [32, 256])
+def test_k8_walk_at_hybrid_density(dev, b):
+    """K8's postings walk at hybrid_msmarco1.b256's shape (B 32 and 256, Q2 16, W2
+    262,144, sel 3; about 9M row ids, Zipf slices cut to 131,072) at the plan's G and
+    forced ones (1, 7, 512): bit-equal to its twin (per 16 queries) in every mode, one
+    launch a call counted as `k8.walk.postings`, and a second call equal to the first
+    (the merge's tickets were left at zero)."""
+    from chip_smoke import zipf_postings, zipf_queries
+
+    rows, wn, offsets, idf = zipf_postings(dev)
+    tq = torch.from_numpy(zipf_queries(np.random.default_rng(b), b)).to(dev)
+    max_df = int((offsets[1:] - offsets[:-1]).max())
+    assert k8.dma_window(max_df) == 262_144
+    for mode in ("any", "all", "count"):
+        want = [k8._candidate_scores_plain(tq[i:i + 16], rows, wn, offsets, idf, 16, 262_144, mode, 3)
+                for i in range(0, b, 16)]
+        want = [torch.cat(x, 0) for x in zip(*want)]
+        for split in (None, 1, 7, 512):
+            n8, nw = counters().get("wax_k8_candidates", 0), counters().get("k8.walk.postings", 0)
+            got = k8.candidate_scores_pallas(tq, rows, wn, offsets, idf, max_df=max_df, mode=mode, sel=3, split=split)
+            assert counters().get("wax_k8_candidates", 0) == n8 + 1
+            assert counters().get("k8.walk.postings", 0) == nw + 1
+            assert all(torch.equal(a, c) for a, c in zip(got, want)), (mode, split)
+            again = k8.candidate_scores_pallas(tq, rows, wn, offsets, idf, max_df=max_df, mode=mode, sel=3,
+                                               split=split)
+            assert all(torch.equal(a, c) for a, c in zip(again, got))
+        assert (want[0] >= 0).any()
 
 
 def _tf32_blind_centroids(c: int, d: int) -> torch.Tensor:

@@ -4,13 +4,16 @@ With tracing on, one call over two corpus shards records `sharded_hybrid.call` o
 each shard's `sharded_hybrid.dense` and `sharded_hybrid.bm25` (the latter holding
 `bm25.candidates` and `bm25.rescore`) once, the two merges and `sharded_hybrid.rrf`,
 all in the call's request; the counter `sharded_hybrid.lex_route.<backend>` adds one
-a call. With tracing off the call records nothing. The `cuda` test holds the off
-switch to no synchronising CUDA call on the card (`syncs_per_batch`'s method):
+a call. With tracing off the call records nothing. The `cuda` tests hold the off
+switch to no synchronising CUDA call on the card (`syncs_per_batch`'s method), and a
+budgeted snapshot without impact chunks (as 2^23 rows a shard and more are built) to
+K8's postings walk, counted `k8.walk.postings` once a call:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_hybrid_tracing.py
 
 This file imports no JAX.
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -113,3 +116,18 @@ def test_call_on_the_card_does_not_synchronise(clean, on):
     recs = profiling.drain_spans()
     assert not [w for w in seen if "called a synchronizing" in str(w.message)]
     assert bool(recs) == on and all(r.device == 0 and r.device_ms >= 0 for r in recs)
+
+
+@pytest.mark.cuda
+def test_card_path_walks_postings_once_a_call(clean):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, tids, dense, lex, mesh = _program(torch.device("cuda", 0), 1)
+    lex = dataclasses.replace(lex, pk_chunks=None, chunk_base=None, chunk_counts=None)
+    assert tsh._resolve_lex_backend(lex, "auto") == "candidates_pallas"
+    before = profiling.counters()
+    tsh.sharded_hybrid_topk(q, tids, dense, lex, 5, mesh)
+    after = profiling.counters()
+    assert after.get("k8.walk.postings", 0) == before.get("k8.walk.postings", 0) + 1
+    assert after.get("k8.walk.rows", 0) == before.get("k8.walk.rows", 0)
+    assert after.get("wax_k8_candidates", 0) == before.get("wax_k8_candidates", 0) + 1

@@ -16,6 +16,17 @@ terms, empty / all -1 / one-posting queries, duplicated terms, tombstoned (weigh
 postings and G past the postings; and against the JAX package's K8 in interpret mode.
 `launch_plan` (the mirror of the C plan `wax_k8_plan`) is checked here against its
 rule; the card test `test_k8_candidates_equal_plain` holds the C plan against it.
+
+With sel > 0 the kernel walks postings, not rows (`k8_candidates_sel`): a query takes
+n = min(G, ceil(P / WALK_MIN)) CTAs (at least one), each CTA its merge-path share in
+windows of TW postings shared out over the slots in proportion to what each has left;
+a window's bound m is the smallest last row among the slots with postings past their
+window, the postings with row <= m are ready, and a counting sort over NB buckets of
+[m0, m] puts them in (row, slot) order; the last of each run of equal rows is its
+leader. `walk` models that with numpy and feeds `select`, held bit for bit against the
+twin on sparse rows (spread over 2^23 and more against a few thousand postings), a row
+held by all 16 slots, runs that end at a window's bound or at a partition, slots that
+run out mid-walk, G 1-64, B 1-13, sel 1-4 and every mode.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -136,6 +147,102 @@ def schedule(term_ids, rows, wn, offsets, idf, q2: int, w2: int, g_ctas: int, ti
             ctas.append(np.concatenate(leaders) if leaders else np.zeros((0, 4), np.int64))
         out.append(dict(n_neg=int(n_neg[b]), nterm=int(nterm[b]), p=p, xs=xs, fs=fs, written=written, ctas=ctas))
     return out
+
+
+def _plan_window(cur, end, tw: int, q2: int) -> list:
+    """A window's postings a slot: of tw, what each slot has left in proportion to the
+    CTA's total left, at least one while it has any (`plan_window`)."""
+    rem = [e - c for c, e in zip(cur, end)]
+    left = sum(rem)
+    return [min(r, 1 + (tw - q2) * r // left) if r > 0 else 0 for r in rem]
+
+
+def walk(term_ids, rows, wn, offsets, idf, q2: int, w2: int, g_ctas: int, tw: int = tk._TW, nb: int = 4096,
+         walk_min: int = tk._WALK_MIN):
+    """Per query: the CTAs the selection kernel takes, their merge-path bounds, and the
+    leaders each CTA found (plane position, row, slot-order f32 sum, count), each CTA
+    walking its postings in windows of `tw` sorted over `nb` buckets; `stats` counts
+    what the walks met (windows, runs of several slots ending at a window's bound,
+    windows in which a slot with postings left had none ready, slots run out while
+    others had postings)."""
+    start, eff, idfs, n_neg, nterm = (x.numpy() for x in tk._slots(torch.from_numpy(term_ids),
+                                                                    torch.from_numpy(offsets),
+                                                                    torch.from_numpy(idf), q2, w2))
+    nc = max(1, tk._THREADS // (2 * q2))
+    stats = dict(windows=0, bound_runs=0, idle_slots=0, ran_out=0, partition_runs=0)
+    out = []
+    for b in range(term_ids.shape[0]):
+        sr = [rows[start[b, s]:start[b, s] + eff[b, s]].astype(np.int64) for s in range(q2)]
+        sw = [np.float32(idfs[b, s]) * wn[start[b, s]:start[b, s] + eff[b, s]] for s in range(q2)]
+        p = int(eff[b].sum())
+        n = min(g_ctas, -(-p // walk_min)) if p else 1
+        live_rows = [r for r in sr if len(r)]
+        rmin = min(int(r[0]) for r in live_rows) if live_rows else np.iinfo(np.int32).max
+        rmax = max(int(r[-1]) for r in live_rows) if live_rows else -1
+        xs, fs = [rmin], [0]
+        for g in range(1, n):
+            x, f, _ = _kary_bound(sr, rmin, rmax + 1, p * g // n, nc)
+            xs.append(x)
+            fs.append(f)
+            stats["partition_runs"] += max(sum(int(np.isin(y, r)) for r in sr) for y in (x - 1, x)) > 1
+        xs.append(rmax + 1)
+        fs.append(p)
+        ctas = []
+        for g in range(n):
+            cur = [int(np.searchsorted(r, xs[g], "left")) for r in sr]
+            end = [int(np.searchsorted(r, xs[g + 1], "left")) for r in sr]
+            base = int(n_neg[b]) + fs[g]
+            had = [e > c for c, e in zip(cur, end)]
+            leaders = []
+            while True:
+                w = _plan_window(cur, end, tw, q2)
+                if sum(w) == 0:
+                    break
+                assert sum(w) <= tw
+                stats["windows"] += 1
+                more = [s for s in range(q2) if w[s] and cur[s] + w[s] < end[s]]
+                m = min((int(sr[s][cur[s] + w[s] - 1]) for s in more), default=np.iinfo(np.int32).max)
+                mx = max(int(sr[s][cur[s] + w[s] - 1]) for s in range(q2) if w[s])
+                m0 = min(int(sr[s][cur[s]]) for s in range(q2) if w[s])
+                hi = min(m, mx)
+                ready = [int(np.searchsorted(sr[s][cur[s]:cur[s] + w[s]], hi, "right")) for s in range(q2)]
+                stats["idle_slots"] += sum(1 for s in range(q2) if w[s] and not ready[s])
+                stats["ran_out"] += any(h and c == e for h, c, e in zip(had, cur, end))
+                # every posting with row <= hi of the CTA's range is in the window
+                for s in range(q2):
+                    nxt = cur[s] + ready[s]
+                    assert nxt == end[s] or sr[s][nxt] > hi
+                e_idx = np.concatenate([np.arange(ready[s]) + sum(w[:s]) for s in range(q2)]).astype(np.int64)
+                r_rows = np.concatenate([sr[s][cur[s]:cur[s] + ready[s]] for s in range(q2)])
+                r_vals = np.concatenate([sw[s][cur[s]:cur[s] + ready[s]] for s in range(q2)]).astype(np.float32)
+                big = len(r_rows)
+                assert big >= 1
+                shift = 0
+                while (hi - m0) >> shift >= nb:
+                    shift += 1
+                bkt = (r_rows - m0) >> shift
+                assert bkt.min() >= 0 and bkt.max() < nb
+                # a posting's rank: its bucket's start plus the postings of its bucket
+                # before it by (row, window index); window index order is slot order
+                by_bucket = np.lexsort((e_idx, r_rows, bkt))
+                np.testing.assert_array_equal(by_bucket, np.lexsort((e_idx, r_rows)))
+                srt_row, srt_val = r_rows[by_bucket], r_vals[by_bucket]
+                last = np.r_[srt_row[1:] != srt_row[:-1], True]  # leaders end the runs
+                j1 = np.flatnonzero(last)
+                j0 = np.flatnonzero(np.r_[True, srt_row[1:] != srt_row[:-1]])
+                c = j1 - j0 + 1
+                acc = np.zeros(len(j1), np.float32)
+                for k in range(int(c.max())):  # each run summed from 0 in slot order
+                    on = c > k
+                    acc[on] = acc[on] + srt_val[j0[on] + k]
+                stats["bound_runs"] += int(np.sum((srt_row[j1] == m) & (c > 1)))
+                leaders.append(np.stack([base + j1, srt_row[j1], acc.view(np.int32), c], 1))
+                cur = [c + r for c, r in zip(cur, ready)]
+                base += big
+            assert cur == end and base == int(n_neg[b]) + fs[g + 1]
+            ctas.append(np.concatenate(leaders).astype(np.int64) if leaders else np.zeros((0, 4), np.int64))
+        out.append(dict(n_neg=int(n_neg[b]), nterm=int(nterm[b]), p=p, n=n, xs=xs, fs=fs, ctas=ctas))
+    return out, stats
 
 
 def _live(ld: np.ndarray, mode: str, nterm: int):
@@ -293,6 +400,111 @@ def test_merge_path_search_rounds():
     assert worst == 3
 
 
+def _check_walk(rows, offsets, max_df, wn, idf, tids, g_ctas, tw=tk._TW, walk_min=tk._WALK_MIN, nb=4096):
+    q2, w2 = _q2(tids.shape[1]), tk.dma_window(max_df)
+    sched, stats = walk(tids, rows, wn, offsets, idf, q2, w2, g_ctas, tw, nb, walk_min)
+    args = [torch.from_numpy(a) for a in (rows, wn, offsets, idf)]
+    for mode in ("any", "all", "count"):
+        for sel in range(1, 5):
+            want = tk._candidate_scores_plain(torch.from_numpy(tids), *args, q2, w2, mode, sel)
+            got = select(sched, mode, sel, q2 * w2)
+            np.testing.assert_array_equal(got[0], want[0].numpy(), err_msg=f"{mode} sel {sel} rows")
+            np.testing.assert_array_equal(got[1], want[1].numpy(), err_msg=f"{mode} sel {sel} keys")
+    return sched, stats
+
+
+@pytest.mark.parametrize("q", [1, 3, 16])
+@pytest.mark.parametrize("b", [1, 2, 13])
+@pytest.mark.parametrize("g_ctas,tw,walk_min", [(1, 4096, 32768), (1, 64, 32768), (3, 64, 100), (7, 128, 50),
+                                                (64, 64, 10), (64, 4096, 1)])
+def test_walk_equals_plain_twin(postings, g_ctas, tw, walk_min, b, q):
+    """The selection kernel at G CTAs a query (a query taking min(G, ceil(P /
+    walk_min))), its postings walked in windows of `tw`, gives the twin's selections
+    bit for bit, in every mode at sel 1-4, on random weights with tombstones, empty,
+    all -1 and duplicated-term queries, sparse ones and (16 terms over 3,000 rows)
+    dense ones; each CTA's share is within Q2 of the even one."""
+    rows, offsets, max_df, data = postings
+    wn, idf = data["random"]
+    sched, stats = _check_walk(rows, offsets, max_df, wn, idf, _queries(b, q, seed=b * 10 + q), g_ctas, tw, walk_min)
+    for qd in sched:
+        assert qd["n"] == (min(g_ctas, -(-qd["p"] // walk_min)) if qd["p"] else 1)
+        shares = np.diff(qd["fs"])
+        even = np.diff([qd["p"] * g // qd["n"] for g in range(qd["n"] + 1)])
+        assert (np.abs(shares - even) <= _q2(q)).all()
+    assert stats["windows"] >= b * (tw == 64)
+
+
+def _shared_postings(rng, n_rows, sizes, common_share, exact):
+    """Term slices over n_rows rows, a `common_share` of each drawn from one common set
+    of rows (so many rows are held by every term); weights on the 1/8 grid or random,
+    a tenth tombstoned."""
+    common = np.sort(rng.choice(n_rows, max(16, int(sizes.max() * common_share)), replace=False))
+    slices = []
+    for m in sizes:
+        k = min(int(m * common_share), len(common))
+        own = rng.choice(n_rows, m - k, replace=False)
+        slices.append(np.union1d(rng.choice(common, k, replace=False), own))
+    rows = np.concatenate(slices).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in slices])]).astype(np.int32)
+    wn = (rng.integers(1, 9, len(rows)) / 8.0 if exact else rng.random(len(rows))).astype(np.float32)
+    wn[rng.random(len(rows)) < 0.1] = 0.0
+    idf = ((rng.integers(1, 5, len(sizes)) / 4.0) if exact else rng.random(len(sizes)) + 0.5).astype(np.float32)
+    max_df = int(((np.diff(offsets).max() + 127) // 128) * 128)
+    return rows, offsets, max_df, wn, idf
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_walk_rows_every_slot_holds(exact):
+    """16 terms over 4,000 rows, 60% of each slice drawn from 300 common rows (rows held
+    by all 16 slots), windows of 32 and 48 postings and shares of 40 to 400: runs of
+    several slots end at a window's bound and at partitions; bit-equal to the twin."""
+    rng = np.random.default_rng(11 + exact)
+    rows, offsets, max_df, wn, idf = _shared_postings(rng, 4000, rng.integers(200, 500, 16), 0.6, exact)
+    tids = np.stack([rng.permutation(16) for _ in range(3)]).astype(np.int32)
+    tids[2, 9:] = -1
+    seen = {"bound_runs": 0, "partition_runs": 0}
+    for g_ctas, tw, walk_min in ((1, 32, 10**6), (9, 48, 400), (64, 32, 40)):
+        _, stats = _check_walk(rows, offsets, max_df, wn, idf, tids, g_ctas, tw, walk_min)
+        for key in seen:
+            seen[key] += stats[key]
+    assert seen["bound_runs"] > 0 and seen["partition_runs"] > 0
+
+
+def test_walk_sparse_rows():
+    """Rows spread over 2^23 + 2^20 against a few thousand postings (the hybrid cell's
+    density and lower), and slices that end early (a term over the first 50,000 rows
+    runs out while the others go on), with 4,096 buckets a window and with 16."""
+    rng = np.random.default_rng(23)
+    n_rows = 2**23 + 2**20
+    sizes = rng.integers(50, 1500, 10)
+    slices = [np.sort(rng.choice(n_rows, m, replace=False)) for m in sizes]
+    slices[4] = np.sort(rng.choice(50_000, 800, replace=False))
+    rows = np.concatenate(slices).astype(np.int32)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    offsets[5:] += 800 - sizes[4]
+    wn = rng.random(len(rows)).astype(np.float32)
+    idf = (rng.random(10) + 0.5).astype(np.float32)
+    max_df = int(((np.diff(offsets).max() + 127) // 128) * 128)
+    tids = np.array([[4, 0, 1, 2, 3, 5, 6, 7], [9, 4, 8, -1, -1, -1, -1, -1]], np.int32)
+    ran_out = 0
+    for g_ctas, tw, walk_min, nb in ((1, 4096, 32768, 4096), (5, 64, 900, 4096), (3, 128, 1000, 16)):
+        _, stats = _check_walk(rows, offsets, max_df, wn, idf, tids, g_ctas, tw, walk_min, nb)
+        ran_out += stats["ran_out"]
+    assert ran_out > 0
+
+
+def test_walk_edges(postings):
+    """Empty, all -1 and one-posting queries, a duplicated term and G past the
+    postings (the query takes one CTA); exact-arithmetic weights with zeros."""
+    rows, offsets, max_df, data = postings
+    wn, idf = data["exact"]
+    tids = np.array([[-1, -1, -1], [4, -1, -1], [4, 4, -1], [3, -1, 3], [7, 7, 2]], np.int32)
+    for g_ctas, walk_min in ((1, 1), (5, 1), (200, 1), (200, 10**6)):
+        sched, _ = _check_walk(rows, offsets, max_df, wn, idf, tids, g_ctas, 64, walk_min)
+        assert [q["p"] for q in sched][:4] == [0, 1, 2, 0]
+        assert [q["n"] for q in sched][:4] == [1, 1, min(g_ctas, 2 // walk_min or 1), 1]
+
+
 @pytest.mark.parametrize("b,q2,w2,sms,per_sm,g", [
     (1, 16, 32_768, 132, 1, 132), (2, 16, 32_768, 132, 1, 66), (13, 16, 32_768, 132, 1, 11),
     (132, 16, 32_768, 132, 1, 1), (256, 16, 32_768, 132, 1, 1), (1, 16, 32_768, 132, 2, 264),
@@ -303,6 +515,19 @@ def test_launch_plan(b, q2, w2, sms, per_sm, g):
     chunk of the plane a CTA and 512."""
     plan = tk.launch_plan(b, q2, w2, sms, per_sm)
     assert plan == {"g": g, "threads": tk._THREADS, "tile": tk._TILE}
+
+
+@pytest.mark.parametrize("b,q2,w2,sel,g", [
+    (256, 16, 262_144, 3, 32), (32, 16, 524_288, 3, 64), (512, 16, 262_144, 3, 21), (256, 16, 32_768, 3, 4),
+    (1, 16, 32_768, 3, 4), (1, 2, 2048, 1, 1), (13, 1024, 2048, 4, 16), (1, 1024, 8192, 4, 64),
+    (4096, 16, 32_768, 4, 2), (16_384, 16, 32_768, 4, 1),
+])
+def test_launch_plan_walk(b, q2, w2, sel, g):
+    """sel > 0: G covers a query of Q2 slices of W2 / 2 postings at WALK_MIN a CTA,
+    within the merge's 256 MiB of scratch and 512; windows of TW postings."""
+    plan = tk.launch_plan(b, q2, w2, 132, 1, sel)
+    assert plan == {"g": g, "threads": tk._THREADS, "tile": tk._TW}
+    assert b * plan["g"] * 2 * sel * 1024 * 4 <= tk._PART_BYTES or plan["g"] == 1
 
 
 def test_split_is_validated(postings):

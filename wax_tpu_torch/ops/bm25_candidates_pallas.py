@@ -13,9 +13,12 @@ summed and counted at the row's last plane position (its leader), and the plane,
 launches. Neither runs the TPU's merge network: the plane is fixed by the multiset of
 postings, so both compute each leader's position directly, and both sum a row's
 postings in query-slot order (the TPU sums them in network order, which can differ in
-the last bit: ROADMAP, deliberate differences). K8 splits each query over G CTAs by a
-merge-path partition of its postings; `launch_plan` is the plain mirror of the C
-choice of G (`wax_k8_plan`, read on a card by `device_plan`).
+the last bit: ROADMAP, deliberate differences). K8 splits each query over CTAs by a
+merge-path partition of its postings. The whole plane (sel 0) walks each CTA's rows in
+8,192-row tiles; the selection (sel > 0) walks each CTA's postings in merge order, in
+windows merged on chip. The wrapper counts the call's walk as `k8.walk.rows` (sel 0) or
+`k8.walk.postings` (sel > 0). `launch_plan` is the plain mirror of the C choice of
+G (`wax_k8_plan`, read on a card by `device_plan`).
 
 Left out: the per-term reversed postings copies `doc_rows_rev` / `wnorm_rev` and the
 window padding of the postings arrays, TPU-only layout the TPU kernel's DMAs read.
@@ -33,6 +36,7 @@ from wax_tpu_torch.ops.bm25_candidates import wide_topk
 from wax_tpu_torch.ops.bm25_chunked_pallas import _SEL_LEVELS, chunked_candidates_sel
 from wax_tpu_torch.ops.bm25_rescore import rescore_topk
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
+from wax_tpu_torch.utils.profiling import count
 
 __all__ = ["bm25_candidates_topk_pallas", "candidate_scores_pallas", "dma_window", "launch_plan", "device_plan"]
 
@@ -43,22 +47,32 @@ _MAX_SEL_CHUNKS = 8192  # the selection key holds the chunk index in 13 bits
 _IMIN = -(2**31)
 _MODES = {"any": 0, "all": 1, "count": 2}
 _THREADS = 1024  # csrc/bm25_candidates.cu THREADS
-_TILE = 8192  # csrc/bm25_candidates.cu TILE: document rows a tile
+_TILE = 8192  # csrc/bm25_candidates.cu TILE: document rows a tile (sel 0)
+_TW = 4096  # csrc/bm25_candidates.cu TW: postings a window (sel > 0)
+_WALK_MIN = 65536  # csrc/bm25_candidates.cu WALK_MIN: postings a CTA owns at least (sel > 0)
+_PART_BYTES = 256 << 20  # csrc/bm25_candidates.cu PART_BYTES: the sel merge's scratch at most
 _G_MAX = 512  # csrc/bm25_candidates.cu G_MAX: CTAs a query at most
 _PLAN_KEYS = ("g", "threads", "tile")
 _tickets: dict = {}  # (device, stream) -> i32 [>= B] at zero: the sel merge's tickets
 
 
-def launch_plan(b: int, q2: int, w2: int, sms: int = 132, ctas_per_sm: int = 1) -> dict:
+def launch_plan(b: int, q2: int, w2: int, sms: int = 132, ctas_per_sm: int = 1, sel: int = 0) -> dict:
     """How K8 launches for B queries of Q2 slots x W2 on a card of `sms` SMs that holds
-    `ctas_per_sm` of its CTAs each, as `plan_g` in csrc/bm25_candidates.cu chooses: G
-    CTAs a query, enough for B * G to fill every SM's CTA slots (G 1 once B does), at
-    most one 1,024-position chunk of the plane a CTA and at most 512; CTAs of `threads`
-    walking tiles of `tile` rows. Grid (B, G)."""
-    slots = sms * ctas_per_sm
-    g = 1 if b >= slots else -(-slots // b)
-    g = max(1, min(g, q2 * w2 // _ALIGN, _G_MAX))
-    return dict(zip(_PLAN_KEYS, (g, _THREADS, _TILE)))
+    `ctas_per_sm` of its CTAs each, as `plan_g` in csrc/bm25_candidates.cu chooses, grid
+    (B, G) of CTAs of `threads`. sel 0: G CTAs a query, enough for B * G to fill every
+    SM's CTA slots (G 1 once B does), at most one 1,024-position chunk of the plane a
+    CTA, walking tiles of `tile` rows. sel > 0: enough CTAs for a query of Q2 slices of
+    W2 / 2 postings at `_WALK_MIN` a CTA (a query takes min(G, ceil(P / _WALK_MIN)) of
+    them, at least one), within `_PART_BYTES` of the merge's scratch, walking windows
+    of `tile` postings. At most 512."""
+    if sel:
+        g = min(-(-q2 * (w2 // 2) // _WALK_MIN), _PART_BYTES // (b * 2 * sel * _ALIGN * 4))
+        tile = _TW
+    else:
+        slots = sms * ctas_per_sm
+        g = min(1 if b >= slots else -(-slots // b), q2 * w2 // _ALIGN)
+        tile = _TILE
+    return dict(zip(_PLAN_KEYS, (max(1, min(g, _G_MAX)), _THREADS, tile)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,8 +191,9 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
     positions c * 1024 + p, key = (sortable score bits & ~0x1FFF) | (0x1FFF - c): monotone
     in the score truncated to 2^-10 relative, ties toward the lower plane position.
 
-    `split` forces K8's CTAs a query (G, 1 to 512; by default `device_plan`'s); the
-    outputs do not depend on it. The plain twin ignores it."""
+    `split` forces K8's CTAs a query (G, 1 to 512; by default `device_plan`'s; with sel >
+    0 a query takes at most G); the outputs do not depend on it. The plain twin ignores
+    it."""
     if term_ids.dim() == 1:
         term_ids = term_ids[None, :]
     if mode not in _MODES:
@@ -215,6 +230,7 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
         if sel and g > 1:  # each CTA's live lists, merged by the query's last CTA
             part = torch.empty(b * g * 2 * sel * _ALIGN, dtype=torch.int32, device=dev)
             tickets = _tickets_for(dev, b)
+        count("k8.walk.postings" if sel else "k8.walk.rows")
         launch("wax_k8_candidates", dev, term_ids.data_ptr(), offsets.data_ptr(), idf.data_ptr(),
                doc_rows.data_ptr(), wnorm.data_ptr(), rows.data_ptr(), 0 if sel else scores.data_ptr(),
                scores.data_ptr() if sel else 0, 0 if part is None else part.data_ptr(),
