@@ -573,7 +573,7 @@ def _kernel_case(name, q, emb, bias, k, tn, exact, timed, results):
     from wax_tpu_torch.ops import flat_scan as fs
 
     (b, d), n = q.shape, emb.shape[0]
-    scores = fs._scores_f32(q, emb) + bias[None, :]  # exact scores for near-tie checks
+    scores = fs.scores_f32(q, emb) + bias[None, :]  # exact scores for near-tie checks
     for kern in ("K1", "K2", "K9"):
         if kern in ("K1", "K2"):
             p = fs.launch_plan(b, n, tn, k, dtype=q.dtype, exact=kern == "K2", device=q.device)
@@ -1201,8 +1201,7 @@ def engine_1m_phase(dev, seed: int, results: dict, lex_job=None) -> dict:
     import torch
 
     from wax_tpu_torch.ops import bm25_rescore as rs
-    from wax_tpu_torch.ops.bm25_candidates import bm25_candidates_topk
-    from wax_tpu_torch.ops.bm25_candidates_pallas import bm25_candidates_topk_pallas
+    from wax_tpu_torch.ops.bm25_lane import bm25_candidates_topk, bm25_candidates_topk_pallas
     from wax_tpu_torch.ops.flat_scan import flat_scan_topk, normalize_rows
     from wax_tpu_torch.parallel.mesh import data_mesh
     from wax_tpu_torch.parallel.sharded_hybrid import sharded_bm25_topk
@@ -1436,7 +1435,8 @@ def synth_sharded_lex(arrays: dict, dev):
     return ShardedLexIndex(
         doc_rows=put(a["doc_rows"]), tfs=put(a["tfs"]), offsets=put(offsets.astype(np.int32)), idf=put(idf),
         doc_len=put(a["doc_len_g"]), frame_ids=put(a["frame_ids_g"]), live=put(a["active_g"]),
-        row_base=(torch.zeros((), dtype=torch.int32, device=dev),), avgdl=torch.tensor(64.0, device=dev),
+        row_base=(torch.zeros((), dtype=torch.int32, device=dev),),
+        count=(torch.tensor(n, dtype=torch.int32, device=dev),), avgdl=torch.tensor(64.0, device=dev),
         wnorm=put(wnorm), fwd_tids=put(a["fwd_tids"]), fwd_wnorm=put(a["fwd_wnorm"]), fwd_fused=put(fz),
         pk_chunks=put(pk), chunk_base=put(cb), chunk_counts=put(cc), max_df=max_df, pk_qb=qb,
         pk_max_chunks=int(cc.max()), fwd_width=a["fwd_width"],
@@ -1593,6 +1593,7 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20, 
     import numpy as np
     import torch
 
+    from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk
     from wax_tpu_torch.ops.flat_scan import normalize_rows
     from wax_tpu_torch.parallel import sharded_hybrid as sh
     from wax_tpu_torch.parallel.mesh import data_mesh
@@ -1636,7 +1637,7 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20, 
         t2 = (tids0 + i) % n_terms
         e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         e[0].record()
-        sh._dense_lane(q0, dense.emb[0], dense.bias[0], 20, True, False)
+        chunkmax_scan_topk(q0, dense.emb[0], dense.bias[0], 20)
         e[1].record()
         sh._bm25_lane(t2, lex, 0, 20, "any", "candidates_pallas")
         e[2].record()
@@ -1661,8 +1662,8 @@ def hybrid_1m_phase(dev, results: dict, n_terms: int = 16_384, iters: int = 20, 
     dense_cpu, lex_cpu = _cpu_copy(dense), _cpu_copy(lex)
     cv, cf = sh.sharded_hybrid_topk(q0[:nq].cpu(), tids0[:nq].cpu(), dense_cpu, lex_cpu, k, data_mesh("cpu"),
                                     lex_backend="candidates_pallas")
-    gdv, gdr = sh._dense_lane(q0[:nq], dense.emb[0], dense.bias[0], 20, True, False)
-    cdv, cdr = sh._dense_lane(q0[:nq].cpu(), dense_cpu.emb[0], dense_cpu.bias[0], 20, True, False)
+    gdv, gdr = chunkmax_scan_topk(q0[:nq], dense.emb[0], dense.bias[0], 20)
+    cdv, cdr = chunkmax_scan_topk(q0[:nq].cpu(), dense_cpu.emb[0], dense_cpu.bias[0], 20)
     gbv, gbf = sh._bm25_lane(tids0[:nq], lex, 0, 20, "any", "candidates_pallas")
     cbv, cbf = sh._bm25_lane(tids0[:nq].cpu(), lex_cpu, 0, 20, "any", "candidates_pallas")
     check(torch.equal(gbf.cpu(), cbf) and torch.allclose(gbv.cpu(), cbv, rtol=1e-6, atol=0.0),
@@ -1867,7 +1868,7 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     import torch
 
     from wax_tpu_torch.ops.bm25_candidates_pallas import dma_window
-    from wax_tpu_torch.ops.flat_scan import _pick_tn, flat_scan_topk, launch_plan, scan_scores
+    from wax_tpu_torch.ops.flat_scan import _pick_tn, blockmax_scan_topk, flat_scan_topk, launch_plan, scan_scores
     from wax_tpu_torch.parallel import sharded_hybrid as sh
     from wax_tpu_torch.parallel.mesh import data_mesh
     from wax_tpu_torch.parallel.sharded_scan import shard_dense_index
@@ -1989,9 +1990,9 @@ def exact_30k_phase(dev, seed: int, results: dict) -> dict:
     cv, cf = sh.sharded_hybrid_topk(q0[:nq].cpu(), tids0[:nq].cpu(), _cpu_copy(dense), lex_cpu, k, cpu_mesh,
                                     lex_backend="candidates_pallas")
     same = [torch.equal(ff0[i].cpu(), cf[i]) for i in range(nq)]
-    _, gdr = sh._dense_lane(q0[:nq], dense.emb[0], dense.bias[0], 20, False, False)
+    _, gdr = blockmax_scan_topk(q0[:nq], dense.emb[0], dense.bias[0], 20)
     dense_cpu = _cpu_copy(dense)
-    _, cdr = sh._dense_lane(q0[:nq].cpu(), dense_cpu.emb[0], dense_cpu.bias[0], 20, False, False)
+    _, cdr = blockmax_scan_topk(q0[:nq].cpu(), dense_cpu.emb[0], dense_cpu.bias[0], 20)
     for i in range(nq):  # a fused list may differ only through a near-tie of the dense lane
         check(same[i] or not torch.equal(gdr[i].cpu(), cdr[i]), f"exact_30k: query {i} fused ids differ")
     check(sum(same) / nq >= 0.9, f"exact_30k: fused ids equal to the plain program for only {sum(same)}/{nq} queries")
@@ -2475,6 +2476,8 @@ def hybrid_1m_sharded_phase(dev, kept: dict) -> dict:
     timed windows."""
     import torch
 
+    from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk, takes_chunkmax
+    from wax_tpu_torch.ops.flat_scan import packed_sel_scan_topk
     from wax_tpu_torch.parallel import sharded_hybrid as sh
     from wax_tpu_torch.parallel.mesh import data_mesh, make_two_level_mesh, shard_rows
 
@@ -2533,14 +2536,14 @@ def hybrid_1m_sharded_phase(dev, kept: dict) -> dict:
         dense_cpu, lex_cpu, cpu_mesh = _cpu_copy(dense), _cpu_copy(lex), data_mesh(["cpu"] * n)
         cv, cf = sh.sharded_hybrid_topk(q0[:nq].cpu(), tids0[:nq].cpu(), dense_cpu, lex_cpu, k, cpu_mesh,
                                         lex_backend="candidates_pallas")
-        chunk = dense.local_rows >= sh._CHUNKMAX_MIN_LOCAL_ROWS
+        lane = chunkmax_scan_topk if takes_chunkmax(dense.local_rows, 20, dense.contiguous) else packed_sel_scan_topk
         lane_same = torch.ones(nq, dtype=torch.bool)
         for s_ in range(n):
             e, _, bi = dense.shard(s_)
             ec, _, bc = dense_cpu.shard(s_)
             with torch.cuda.device(e.device):
-                _, gr = sh._dense_lane(q0[:nq].to(e.device), e, bi, 20, chunk, not chunk)
-            _, cr = sh._dense_lane(q0[:nq].cpu(), ec, bc, 20, chunk, not chunk)
+                _, gr = lane(q0[:nq].to(e.device), e, bi, 20)
+            _, cr = lane(q0[:nq].cpu(), ec, bc, 20)
             lane_same &= (gr.cpu() == cr).all(dim=1)
         same = [torch.equal(ff0[i].cpu(), cf[i]) for i in range(nq)]
         for i in range(nq):
@@ -2708,7 +2711,7 @@ def _k1_snap_case(phase: str, snap, q, k: int, label: str) -> dict:
     kv, kr = fs._merge_tiles(*fs._decode_packed(run_kernel(), k, tn), k)
     pv, pr = fs._merge_tiles(*fs._decode_packed(run_plain(), k, tn), k)
     err, overlap = _topk_agree(phase, f"K1 B {b} ({label})", kv, kr, pv, pr,
-                               fs._scores_f32(q, snap.emb) + bias[None, :], k, False, TRUNC_REL)
+                               fs.scores_f32(q, snap.emb) + bias[None, :], k, False, TRUNC_REL)
     out_bytes = b * (n // tn) * k * 4
     nbytes = 4 * (b * d + n * d) + 4 * n + out_bytes
     rec = {"ms": queued_ms(run_kernel), "plain_ms": queued_ms(run_plain), "max_abs_err": err}
@@ -3127,7 +3130,7 @@ def _k2_case(phase, q, snap, k) -> dict:
 
     (gv, gr), (rv, rr) = run_kernel(), run_plain()
     check(float((gv - rv).abs().max()) <= F32_TOL, f"{phase}: K2 tile values beyond {F32_TOL}")
-    scores = fs._scores_f32(q, emb) + bias[None, :]
+    scores = fs.scores_f32(q, emb) + bias[None, :]
     err, overlap = _topk_agree(phase, "K2", *fs._merge_tiles(gv, gr, k), *fs._merge_tiles(rv, rr, k), scores, k,
                                False, 0.0)
     del scores
@@ -4450,23 +4453,18 @@ def _bm25_lanes_near(phase, what, qs, card, ref) -> int:
 @contextlib.contextmanager
 def bm25_lane_as_on_card():
     """The sharded BM25 lane's `auto` backend resolved on CPU postings as on the card:
-    the kernels' plain twins (K8's on an exact store) under the same plane guard,
-    instead of the plain merge harness, so a CPU orchestrator's lane can equal the
-    card's bit for bit."""
-    from wax_tpu_torch.ops.bm25_candidates_pallas import dma_window
+    the kernels' plain twins (K8's on an exact store) where `kernels_take` passes the
+    shard's snapshot, instead of the plain merge harness, so a CPU orchestrator's lane
+    can equal the card's bit for bit."""
+    from wax_tpu_torch.ops.bm25_candidates_pallas import kernels_take
     from wax_tpu_torch.parallel import sharded_hybrid as sh
 
     real = sh._resolve_lex_backend
 
     def as_on_card(lex, backend, q2=16):
-        got = real(lex, backend, q2)
-        if backend == "auto" and got == "candidates":
-            q2_pow2 = 2
-            while q2_pow2 < q2:
-                q2_pow2 *= 2
-            if q2_pow2 * dma_window(int(lex.max_df)) <= sh._PALLAS_MAX_PLANE_ELEMS:
-                return "candidates_pallas"
-        return got
+        if backend == "auto" and kernels_take(lex.shard(0), q2):
+            return "candidates_pallas"
+        return real(lex, backend, q2)
 
     sh._resolve_lex_backend = as_on_card
     try:
@@ -4490,7 +4488,7 @@ def orch_sharded_phase(dev, seed: int, path: Path, results: dict) -> dict:
 
     from wax_tpu_torch.embed.hash_embedder import HashEmbedder
     from wax_tpu_torch.orchestrator import MemoryOrchestrator, OrchestratorConfig
-    from wax_tpu_torch.parallel import sharded_hybrid
+    from wax_tpu_torch.ops import bm25_lane
     import wax_tpu_torch.search.unified as unified
     from wax_tpu_torch.search import engine_cache
     from wax_tpu_torch.types import SearchRequest
@@ -4530,7 +4528,7 @@ def orch_sharded_phase(dev, seed: int, path: Path, results: dict) -> dict:
 
             unified.sharded_bm25_topk = counted
             try:
-                with first_call_args(sharded_hybrid, "candidate_scores_pallas", k8_args):
+                with first_call_args(bm25_lane, "candidate_scores_pallas", k8_args):
                     for i in range(n):
                         t1 = time.perf_counter()
                         resp = o.search(SearchRequest(query=queries[0][i], top_k=10))

@@ -20,6 +20,7 @@ from wax_tpu.ops import bm25_rescore as jbr
 from wax_tpu.ops.bm25 import pad_term_ids
 from wax_tpu_torch.index import lex as tlex
 from wax_tpu_torch.ops import bm25_candidates as tbc
+from wax_tpu_torch.ops import bm25_lane
 from wax_tpu_torch.ops import bm25_rescore as tbr
 from wax_tpu_torch.utils.profiling import counters
 
@@ -182,7 +183,7 @@ def test_bm25_candidates_topk_equal(snaps, budget, mode, k):
     js, ts, tb = snaps[budget]
     tids = np.concatenate([_tids(tb, 2, seed=31), _tids(tb, 6, seed=32)[:, :2]])
     jv, jr, jf = jbc.bm25_candidates_topk(jnp.asarray(tids), js, k, mode=mode)
-    tv, tr, tf = tbc.bm25_candidates_topk(torch.from_numpy(tids), ts, k, mode=mode)
+    tv, tr, tf = bm25_lane.bm25_candidates_topk(torch.from_numpy(tids), ts, k, mode=mode)
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6, atol=0)

@@ -27,6 +27,8 @@ from wax_tpu.ops import bm25_candidates_pallas as jk
 from wax_tpu.ops.bm25 import pad_term_ids
 from wax_tpu_torch.index import lex as tlex
 from wax_tpu_torch.ops import bm25_candidates_pallas as tk
+from wax_tpu_torch.ops import bm25_lane
+from wax_tpu_torch.ops.bm25_candidates import wide_topk
 from wax_tpu_torch.utils.profiling import counters
 
 N_ROWS, N_TERMS = 3000, 12
@@ -119,7 +121,7 @@ def test_k8_duplicate_documents_tie_to_the_lowest_row():
     live = r[0] >= 0
     got = dict(zip(r[0][live].tolist(), s[0][live].tolist()))
     assert got[5] == got[9]
-    vals, pos = tk.wide_topk(s, 2)
+    vals, pos = wide_topk(s, 2)
     assert r[0][pos[0]].tolist() == [5, 9]
 
 
@@ -174,7 +176,7 @@ def test_bm25_candidates_topk_pallas_equals_jax(snaps, store, mode):
                                   max_terms=16) for n in (1, 2, 3, 5, 2, 4)])
     for k in (4, 24):
         jv, jr, jf = jk.bm25_candidates_topk_pallas(jnp.asarray(tids), js, k, mode=mode)
-        tv, tr, tf = tk.bm25_candidates_topk_pallas(torch.from_numpy(tids), ts, k, mode=mode)
+        tv, tr, tf = bm25_lane.bm25_candidates_topk_pallas(torch.from_numpy(tids), ts, k, mode=mode)
         np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
         np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
         np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6, atol=0)

@@ -98,7 +98,7 @@ def test_k1_k2_near_plain_on_random_unit_vectors(dev, dtype, b, k, n, tn, d):
     emb = fs.normalize_rows(torch.randn((n, d), generator=g)).to(dev, dtype).contiguous()
     bias = torch.zeros(n, device=dev)
     bias[torch.randperm(n, generator=g)[: n // 10].to(dev)] = fs.NEG_INF
-    scores = fs._scores_f32(q, emb) + bias[None, :]
+    scores = fs.scores_f32(q, emb) + bias[None, :]
     got = fs.packed_sel_tiles(q, emb, bias, k, tn)
     _assert_packed_near(got, fs._packed_sel_topk_plain(q, emb, bias, k, tn), scores, k, tn, "K1 vs plain")
     _assert_packed_near(got, fs.packed_topk_tiles(q, emb, bias, k, tn), scores, k, tn, "K1 vs K9")
@@ -347,7 +347,7 @@ def test_sharded_scan_runs_k6_k7_a_card(dev):
     """`sharded_flat_scan_topk` over the cards present, 2^20 contiguous bf16 unit rows a
     card, B 64, k 10: one K6 launch and one count of the chunkmax route a card a call,
     no synchronising call; the merged top-10's scores within 2e-05 of the f32-product
-    route's (`_scores_f32`, `blockmax_topk` a card, the same merge) and of each
+    route's (`scores_f32`, `blockmax_topk` a card, the same merge) and of each
     returned row's own score, ten distinct ids a query."""
     from wax_tpu_torch.ops.topk import blockmax_topk
     from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
@@ -379,7 +379,7 @@ def test_sharded_scan_runs_k6_k7_a_card(dev):
     assert counters()["sharded_scan.chunkmax_shards"] == routed + len(devs)
     lv, lf = [], []
     for e, fi, bi in zip(emb, fids, bias):
-        rv, rr = blockmax_topk(fs._scores_f32(q.to(e.device).to(e.dtype), e, bi), k)
+        rv, rr = blockmax_topk(fs.scores_f32(q.to(e.device).to(e.dtype), e, bi), k)
         lv.append(rv)
         lf.append(fi[rr.long()])
     rv, _ = merge_topk_across_mesh(lv, lf, k, mesh)
@@ -570,7 +570,7 @@ def test_k9_equals_plain_on_exact_data_and_k1_on_any(dev, dtype, b, k, n, tn, d)
     qr = fs.normalize_rows(torch.randn((b, d), generator=g)).to(dev, dtype).contiguous()
     er = fs.normalize_rows(torch.randn((n, d), generator=g)).to(dev, dtype).contiguous()
     got = fs.packed_topk_tiles(qr, er, bias, k, tn)
-    scores = fs._scores_f32(qr, er) + bias[None, :]
+    scores = fs.scores_f32(qr, er) + bias[None, :]
     _assert_packed_near(got, fs._packed_sel_topk_plain(qr, er, bias, k, tn), scores, k, tn, "K9 vs plain")
     _assert_packed_near(got, fs.packed_sel_tiles(qr, er, bias, k, tn), scores, k, tn, "K9 vs K1")
 
@@ -776,7 +776,7 @@ TF32_PATHS = ["scores_f32", "blockmax16_rescore", "kmeans_assign", "centroid_sum
 def test_f32_products_hold_with_tf32_on(dev, path):
     """With TF32 turned on process-wide (`torch.backends.cuda.matmul.allow_tf32`), the
     port's f32 product paths still compute in f32 and equal their CPU results: the
-    `xla` scan's scores (`flat_scan._scores_f32`) and blockmax16's exact rescore, the
+    `xla` scan's scores (`flat_scan.scores_f32`) and blockmax16's exact rescore, the
     IVF build's centroid sums and the plain probe loop's scores (within 1e-5 on unit
     vectors); k-means assignment (`ivf._assign`), IVF probe selection
     (`ivf.ivf_search_topk`) and the IVF engine's incremental placement
@@ -808,7 +808,7 @@ def test_f32_products_hold_with_tf32_on(dev, path):
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         if path == "scores_f32":
-            close(fs._scores_f32, q, emb)
+            close(fs.scores_f32, q, emb)
         elif path == "blockmax16_rescore":
             bias = torch.zeros(8192)
             got = fs._blockmax16_topk(q.to(dev), emb.to(dev), bias.to(dev), 10)

@@ -12,9 +12,10 @@ program against the plain reference, and `auto`'s BM25 route on a chunked snapsh
   impact chunks, and the plain harness) against `reference/hybrid_plain.py` on seeded
   random postings and exact-arithmetic rows: the dense list, the BM25 list and the
   fused list.
-* `_resolve_lex_backend` keeps the TPU's plane guard for a chunked or unbudgeted
-  snapshot on a card, and sends a truncated snapshot without chunks (2^23 rows a shard
-  and more) to K8's selection mode while that plane fits.
+* `kernels_take` keeps the TPU's plane guard for a chunked or unbudgeted snapshot on
+  a card, and sends a truncated snapshot without chunks (2^23 rows a shard and more)
+  to K8's selection mode while that plane fits; `_resolve_lex_backend` asks it on a
+  card only.
 """
 import dataclasses
 import types
@@ -31,6 +32,8 @@ from wax_tpu.parallel.mesh import data_mesh as jax_mesh
 from wax_tpu_torch.index import lex as tlex
 from wax_tpu_torch.index.lex import FWD_WIDTH_CAP
 from wax_tpu_torch.index.lex import LexIndexBuilder as TorchLex
+from wax_tpu_torch.ops import bm25_lane
+from wax_tpu_torch.ops.bm25_candidates_pallas import kernels_take
 from wax_tpu_torch.parallel import sharded_hybrid as tsh
 from wax_tpu_torch.parallel.mesh import data_mesh as torch_mesh
 from wax_tpu_torch.parallel.sharded_scan import ShardedDenseIndex
@@ -115,6 +118,24 @@ def test_card_builder_equals_host_path(case, shards):
         for f in ("max_df", "pk_qb", "pk_max_chunks", "fwd_width"):
             assert getattr(ts, f) == getattr(snap, f), f
         assert torch.equal(ts.avgdl, snap.avgdl)
+
+
+@pytest.mark.parametrize("case", ["exact", "budgeted"])
+def test_shard_view_is_the_snapshot(case):
+    """On a one-shard mesh over the snapshot's row space, `ShardedLexIndex.shard(0)`,
+    the view every shard's BM25 lane runs on, is `LexIndexBuilder.snapshot()`: every
+    field equal, tensors bit for bit in dtype, shape and bytes."""
+    _, tl = _builders(case)
+    view = tsh.shard_lex_index(tl, torch_mesh("cpu"), tl.row_space()).shard(0)
+    snap = tl.snapshot(device="cpu")
+    assert (snap.fwd_tids is None) == (case == "exact")
+    for f in dataclasses.fields(tlex.LexIndex):
+        got, want = getattr(view, f.name), getattr(snap, f.name)
+        if torch.is_tensor(want):
+            assert got.dtype == want.dtype and got.shape == want.shape, f.name
+            assert got.numpy().tobytes() == want.numpy().tobytes(), f.name
+        else:
+            assert got == want, f.name
 
 
 # ------------------------------------------------- the program against the reference
@@ -214,19 +235,17 @@ def test_auto_routes_chunked_snapshots_to_k4():
     ts = tsh.shard_lex_index(tl, torch_mesh("cpu"), tl.row_space())
     assert ts.pk_chunks is not None and ts.pk_qb >= 8 and tsh._resolve_lex_backend(ts, "auto") == "candidates"
     card = dataclasses.replace(ts, doc_rows=(types.SimpleNamespace(device=torch.device("cuda")),))
-    for max_df, q2, want in ((128, 16, "candidates_pallas"), (30_720, 16, "candidates_pallas"),
-                             (32_768, 16, "candidates"), (200_000, 16, "candidates"), (128, 256, "candidates_pallas"),
-                             (128, 512, "candidates")):
-        assert tsh._resolve_lex_backend(dataclasses.replace(card, max_df=max_df), "auto", q2=q2) == want
-    unchunked = dataclasses.replace(card, pk_chunks=None, chunk_base=None, chunk_counts=None, pk_qb=0)
-    for max_df, q2, want in ((34_560, 16, "candidates_pallas"), (65_536, 16, "candidates_pallas"),
-                             (262_144, 16, "candidates_pallas"), (524_288, 16, "candidates"),
-                             (34_560, 128, "candidates_pallas"), (34_560, 256, "candidates"),
-                             (1_024, 1_024, "candidates_pallas"), (1_024, 2_048, "candidates")):
-        assert tsh._resolve_lex_backend(dataclasses.replace(unchunked, max_df=max_df), "auto", q2=q2) == want
+    assert tsh._resolve_lex_backend(card, "auto", q2=16) == "candidates_pallas"
+    chunked = ts.shard(0)
+    for max_df, q, want in ((128, 16, True), (30_720, 16, True), (32_768, 16, False), (200_000, 16, False),
+                            (128, 256, True), (128, 512, False)):
+        assert kernels_take(dataclasses.replace(chunked, max_df=max_df), q) == want
+    unchunked = dataclasses.replace(chunked, pk_chunks=None, chunk_base=None, chunk_counts=None, pk_qb=0)
+    for max_df, q, want in ((34_560, 16, True), (65_536, 16, True), (262_144, 16, True), (524_288, 16, False),
+                            (34_560, 128, True), (34_560, 256, False), (1_024, 1_024, True), (1_024, 2_048, False)):
+        assert kernels_take(dataclasses.replace(unchunked, max_df=max_df), q) == want
     exact = dataclasses.replace(unchunked, fwd_tids=None, fwd_wnorm=None, fwd_fused=None)
-    assert tsh._resolve_lex_backend(exact, "auto", q2=16) == "candidates_pallas"
-    assert tsh._resolve_lex_backend(dataclasses.replace(exact, max_df=65_536), "auto", q2=16) == "candidates"
+    assert kernels_take(exact, 16) and not kernels_take(dataclasses.replace(exact, max_df=65_536), 16)
     assert tsh._resolve_lex_backend(dataclasses.replace(card, max_df=200_000), "candidates_pallas") == \
         "candidates_pallas"
 
@@ -254,7 +273,7 @@ def test_coarse_chunks_generate_with_k8(monkeypatch):
     def no_k4(*a, **k):
         raise AssertionError("K4 ran without chunks")
 
-    monkeypatch.setattr(tsh, "chunked_candidates_sel", no_k4)
+    monkeypatch.setattr(bm25_lane, "chunked_candidates_sel", no_k4)
     got = tsh.sharded_bm25_topk(tids, coarse, 10, mesh, backend="candidates_pallas")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and (got[1][:, 0] >= 0).all()
 

@@ -28,13 +28,17 @@ from wax_tpu.parallel.sharded_ivf import shard_ivf_index as jax_shard_ivf
 from wax_tpu.parallel.sharded_ivf import sharded_ivf_search_topk as jax_ivf_search
 from wax_tpu.parallel.sharded_scan import shard_dense_index as jax_shard_dense
 from wax_tpu.parallel.sharded_scan import sharded_flat_scan_topk as jax_scan
+from wax_tpu_torch.index.dense import DenseIndex
 from wax_tpu_torch.index.dense import DenseIndexBuilder as TorchDense
+from wax_tpu_torch.index.lex import LexIndexBuilder as TorchLex
 from wax_tpu_torch.index.ivf import ivf_index_from_numpy, ivf_search_topk
 from wax_tpu_torch.parallel import mesh as tmesh
 from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
 from wax_tpu_torch.parallel.sharded_ivf import shard_ivf_index, sharded_ivf_search_topk
-from wax_tpu_torch.parallel import sharded_hybrid, sharded_scan
-from wax_tpu_torch.parallel.sharded_scan import shard_dense_index, sharded_flat_scan_topk
+from wax_tpu_torch.ops import chunkmax_scan
+from wax_tpu_torch.ops.flat_scan import flat_scan_topk
+from wax_tpu_torch.parallel import sharded_hybrid
+from wax_tpu_torch.parallel.sharded_scan import ShardedDenseIndex, shard_dense_index, sharded_flat_scan_topk
 from wax_tpu_torch.utils.profiling import counters
 
 CPU8 = ["cpu"] * 8
@@ -244,7 +248,7 @@ def test_sharded_scan_chunkmax_route_equals_jax(name, data, monkeypatch):
     equal to JAX's XLA scan, scores within rtol 1e-6. Exact-arithmetic rows (dot
     product, many exact ties): scores bit-equal, ids equal up to the order of exact
     ties and the choice among rows tied at the k-th score."""
-    monkeypatch.setattr(sharded_scan, "_CHUNKMAX_MIN_LOCAL_ROWS", 2048)
+    monkeypatch.setattr(chunkmax_scan, "_MIN_ROWS", 2048)
     rng = np.random.default_rng(11)
     vecs = _exact(16384, 12) if data == "exact" else rng.standard_normal((16384, D)).astype(np.float32)
     q = _exact(16, 13) if data == "exact" else rng.standard_normal((16, D)).astype(np.float32)
@@ -263,7 +267,7 @@ def test_sharded_scan_blockmax_shards_unchanged(case, monkeypatch):
     """Shards the chunkmax route does not take keep the blockmax body: a tombstoned
     index, 1,024 local rows (the floor lowered to 1,024, rows not a multiple of 2,048),
     and k 101. No shard is counted; ids equal to JAX's, scores within rtol 1e-6."""
-    monkeypatch.setattr(sharded_scan, "_CHUNKMAX_MIN_LOCAL_ROWS", 1024)
+    monkeypatch.setattr(chunkmax_scan, "_MIN_ROWS", 1024)
     rng = np.random.default_rng(21)
     n = 8192 if case == "unaligned" else 16384
     vecs, q = rng.standard_normal((n, D)).astype(np.float32), rng.standard_normal((16, D)).astype(np.float32)
@@ -275,9 +279,45 @@ def test_sharded_scan_blockmax_shards_unchanged(case, monkeypatch):
     np.testing.assert_allclose(tv, jv, rtol=1e-6, atol=0)
 
 
-def test_sharded_scan_chunkmax_floor_pinned_to_the_hybrid_lane():
-    """The two sharded dense routes take chunkmax from the same local row count."""
-    assert sharded_scan._CHUNKMAX_MIN_LOCAL_ROWS == sharded_hybrid._CHUNKMAX_MIN_LOCAL_ROWS == 524_288
+# (rows, k, contiguous) against the floor lowered to 135,168 rows (66 x 2,048, past
+# flat_scan's K1 regime): below the floor, at it, not contiguous, not a multiple of
+# 2,048, and k 51 (the hybrid lane's fetch, max(2k, 16), is then 102)
+CHUNKMAX_CASES = [(133_120, 10, True), (135_168, 10, True), (135_168, 10, False), (135_680, 10, True),
+                  (135_168, 51, True)]
+
+
+@pytest.mark.parametrize("route", ["flat_scan", "sharded_scan", "sharded_hybrid"])
+def test_sharded_scan_chunkmax_floor_pinned_to_the_hybrid_lane(route, monkeypatch):
+    """flat_scan's "auto", the sharded scan and the sharded hybrid program's dense lane
+    send a row block to chunkmax (K6's twin runs) exactly where the one predicate,
+    `chunkmax_scan.takes_chunkmax`, says for the k each hands its lane."""
+    monkeypatch.setattr(chunkmax_scan, "_MIN_ROWS", 135_168)
+    calls = []
+    real = chunkmax_scan.chunk_maxima
+    monkeypatch.setattr(chunkmax_scan, "chunk_maxima", lambda *a: calls.append(a) or real(*a))
+    mesh = tmesh.data_mesh(["cpu"])
+    lex = TorchLex()
+    lex.add_batch([(i, f"fox river {i % 7}") for i in range(64)])
+    tids = torch.tensor([lex.term_ids(["fox", "river"])] * 2, dtype=torch.int32)
+    rng = np.random.default_rng(5)
+    seen = set()
+    for rows, k, contiguous in CHUNKMAX_CASES:
+        emb = torch.from_numpy(rng.standard_normal((rows, 4)).astype(np.float32))
+        q = torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32))
+        ids = torch.arange(rows, dtype=torch.int32)
+        dense = ShardedDenseIndex(emb=(emb,), frame_ids=(ids,), bias=(torch.zeros(rows),), contiguous=contiguous)
+        calls.clear()
+        if route == "flat_scan":
+            flat_scan_topk(q, DenseIndex(emb=emb, frame_ids=ids, active=ids >= 0, count=torch.tensor(rows),
+                                         contiguous=contiguous), k)
+        elif route == "sharded_scan":
+            sharded_flat_scan_topk(q, dense, k, mesh)
+        else:
+            sharded_hybrid.sharded_hybrid_topk(q, tids, dense, sharded_hybrid.shard_lex_index(lex, mesh, 64), k, mesh)
+        want = chunkmax_scan.takes_chunkmax(rows, max(2 * k, 16) if route == "sharded_hybrid" else k, contiguous)
+        assert bool(calls) == want, (route, rows, k, contiguous)
+        seen.add(want)
+    assert seen == {True, False}
 
 
 # --------------------------------------------------------------------------------- IVF

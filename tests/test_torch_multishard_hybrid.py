@@ -31,6 +31,7 @@ from wax_tpu.parallel import sharded_hybrid as jsh
 from wax_tpu.parallel.sharded_scan import shard_dense_index as jax_shard_dense
 from wax_tpu_torch.index.dense import DenseIndexBuilder as TorchDense
 from wax_tpu_torch.index.lex import LexIndexBuilder as TorchLex
+from wax_tpu_torch.ops import chunkmax_scan
 from wax_tpu_torch.parallel import mesh as tmesh
 from wax_tpu_torch.parallel import sharded_hybrid as tsh
 from wax_tpu_torch.parallel.sharded_scan import shard_dense_index as torch_shard_dense
@@ -218,8 +219,8 @@ def test_sharded_hybrid_chunkmax_on_two_shards(built, monkeypatch):
     docs = _docs(4096)
     jl.add_batch(docs)
     tl.add_batch(docs)
-    for mod in (jsh, tsh):
-        monkeypatch.setattr(mod, "_CHUNKMAX_MIN_LOCAL_ROWS", 2048)
+    monkeypatch.setattr(jsh, "_CHUNKMAX_MIN_LOCAL_ROWS", 2048)
+    monkeypatch.setattr(chunkmax_scan, "_MIN_ROWS", 2048)
     jm, tm = jmesh.data_mesh(2), tmesh.data_mesh(["cpu"] * 2)
     jdn, tdn = _dense(4096, (jm, tm))
     assert tdn.contiguous and tdn.local_rows == 2048

@@ -1,7 +1,9 @@
 """The port stands without JAX: every wax_tpu_torch module imports with `jax` and
 `flax` blocked, and none of them loads jax, flax or the wax_tpu package. chip_smoke.py,
 which drives the port on a GPU, imports no JAX either, and without a CUDA device it
-exits non-zero and prints no result line."""
+exits non-zero and prints no result line. The mesh layer imports no private name of
+`wax_tpu_torch.ops`."""
+import ast
 import json
 import os
 import shutil
@@ -44,7 +46,7 @@ def test_port_imports_without_jax():
         "ops.topk", "ops.flat_scan", "ops._build", "ops.bm25", "ops.fusion",
         "index.dense", "index.lex", "search.vector_engines", "search.engine",
         "text.wordpiece", "text.unicode61_tables", "embed.provider", "embed.minilm",
-        "utils.concurrency", "utils.device", "ops.bm25_candidates", "ops.bm25_rescore",
+        "utils.concurrency", "utils.device", "ops.bm25_candidates", "ops.bm25_lane", "ops.bm25_rescore",
         "ops.bm25_chunked_pallas", "ops.chunkmax_scan", "ops.ivf_kernel", "parallel.mesh",
         "parallel.merge", "parallel.sharded_scan", "parallel.sharded_hybrid", "parallel.sharded_ivf", "search.unified",
         "index.ivf", "index.graph", "index.graph_cpp", "ops.beam_search", "session",
@@ -54,6 +56,22 @@ def test_port_imports_without_jax():
         "surfaces.repo_tui", "surfaces.crash_harness", "surfaces.license", "utils.backend", "utils.diagnostics",
     }
     assert {f"wax_tpu_torch.{m}" for m in expected} <= set(res["mods"])
+
+
+def test_parallel_imports_no_private_ops_name():
+    """The mesh layer calls each lane's body in `wax_tpu_torch.ops` by its public names:
+    no module of `wax_tpu_torch/parallel/` imports a `_`-prefixed name from there."""
+    bad = []
+    for path in sorted((REPO / "wax_tpu_torch" / "parallel").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("wax_tpu_torch.ops"):
+                names = [f"{node.module}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names if a.name.startswith("wax_tpu_torch.ops")]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names if any(p.startswith("_") for p in n.split("."))]
+    assert bad == []
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -56,7 +56,7 @@ def _split_model(q, emb, bias, k, tn, split, exact):
     the k best by tile-local key, then per tile the k best of the split's lists."""
     b, n = q.shape[0], emb.shape[0]
     nn, sub = n // tn, tn // split
-    scores = fs._scores_f32(q, emb) + bias[None, :]
+    scores = fs.scores_f32(q, emb) + bias[None, :]
     if exact:  # (score desc, column asc): stable top-k, lists concatenated in column order
         sv, sc = stable_top_k(scores.reshape(b, nn, split, sub), k)
         cols = sc + (torch.arange(split) * sub)[None, None, :, None]

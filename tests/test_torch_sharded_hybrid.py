@@ -32,6 +32,8 @@ from wax_tpu.parallel.mesh import data_mesh as jax_mesh
 from wax_tpu.parallel.sharded_scan import shard_dense_index as jax_shard_dense
 from wax_tpu_torch.index.dense import DenseIndexBuilder as TorchDense
 from wax_tpu_torch.index.lex import LexIndexBuilder as TorchLex
+from wax_tpu_torch.ops import bm25_candidates_pallas as k8
+from wax_tpu_torch.ops import chunkmax_scan
 from wax_tpu_torch.parallel import sharded_hybrid as tsh
 from wax_tpu_torch.parallel.mesh import data_mesh as torch_mesh
 from wax_tpu_torch.parallel.sharded_scan import shard_dense_index as torch_shard_dense
@@ -109,8 +111,8 @@ def test_unchunked_kernel_lane_raises_naming_k8(built):
     tids = _term_ids(tl)
     jr, jsc = jsh.candidate_scores_pallas(jnp.asarray(tids), js.doc_rows[0], js.wnorm[0], js.offsets[0],
                                           js.idf[0], js.doc_rows_rev[0], js.wnorm_rev[0], max_df=js.max_df)
-    tr, tsc = tsh.candidate_scores_pallas(torch.from_numpy(tids), ts.doc_rows[0], ts.wnorm[0], ts.offsets[0],
-                                          ts.idf[0], max_df=ts.max_df)
+    tr, tsc = k8.candidate_scores_pallas(torch.from_numpy(tids), ts.doc_rows[0], ts.wnorm[0], ts.offsets[0],
+                                         ts.idf[0], max_df=ts.max_df)
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), rtol=1e-6, atol=0)
     with pytest.raises(ValueError, match="unknown BM25 backend"):
@@ -119,17 +121,20 @@ def test_unchunked_kernel_lane_raises_naming_k8(built):
 
 
 def test_resolve_lex_backend_decides_on_the_device(built):
-    """CPU postings take the plain harness; CUDA postings resolve as the TPU does,
-    including its plane guard (the tensor's device is all the rule reads)."""
+    """CPU postings take the plain harness; CUDA postings (the tensor's device is all
+    the rule reads) take the kernels where `kernels_take` passes the shard's snapshot,
+    which resolves as the TPU does, including its plane guard."""
     ts = tsh.shard_lex_index(built[0][BUDGET][1], torch_mesh("cpu"), N)
     assert tsh._resolve_lex_backend(ts, "auto") == "candidates"
     on_card = dataclasses.replace(ts, doc_rows=(types.SimpleNamespace(device=torch.device("cuda")),))
     assert tsh._resolve_lex_backend(on_card, "auto", q2=16) == "candidates_pallas"
     assert tsh._resolve_lex_backend(dataclasses.replace(on_card, max_df=200_000), "auto", q2=16) == "candidates"
-    assert tsh._resolve_lex_backend(on_card, "auto", q2=16 * 1024) == "candidates"
+    snap = ts.shard(0)
+    assert k8.kernels_take(snap, 16) and not k8.kernels_take(dataclasses.replace(snap, max_df=200_000), 16)
+    assert not k8.kernels_take(snap, 16 * 1024)
     assert tsh._resolve_lex_backend(ts, "candidates_pallas") == "candidates_pallas"
-    assert tsh._PALLAS_MAX_PLANE_ELEMS == jsh._PALLAS_MAX_PLANE_ELEMS
-    assert (tsh._CHUNKMAX_MIN_LOCAL_ROWS, tsh._SELKERNEL_MIN_LOCAL_ROWS) == (
+    assert k8._PALLAS_MAX_PLANE_ELEMS == jsh._PALLAS_MAX_PLANE_ELEMS
+    assert (chunkmax_scan._MIN_ROWS, tsh._SELKERNEL_MIN_LOCAL_ROWS) == (
         jsh._CHUNKMAX_MIN_LOCAL_ROWS, jsh._SELKERNEL_MIN_LOCAL_ROWS)
 
 
@@ -141,8 +146,8 @@ def test_sharded_hybrid_topk_equal(built, monkeypatch, branch, budget, lex_backe
     jl, tl = built[0][budget]
     jd, td = built[1]
     if branch == "chunkmax":
-        for mod in (jsh, tsh):
-            monkeypatch.setattr(mod, "_CHUNKMAX_MIN_LOCAL_ROWS", 1024)
+        monkeypatch.setattr(jsh, "_CHUNKMAX_MIN_LOCAL_ROWS", 1024)
+        monkeypatch.setattr(chunkmax_scan, "_MIN_ROWS", 1024)
     if branch == "selkernel":
         for mod in (jsh, tsh):
             monkeypatch.setattr(mod, "_SELKERNEL_MIN_LOCAL_ROWS", 1024)

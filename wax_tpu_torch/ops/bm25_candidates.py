@@ -12,18 +12,17 @@ stable, so the order in which a row's contributions from three or more terms mee
 depends on the network, and that order decides the last bit of their f32 sum. Running
 the same network keeps `candidate_scores_sorted` bit-equal to the JAX package's.
 
-With a forward index (the budget truncated a term), the top-F candidates, ranked
-with `wide_topk(exact=False)`, are rescored exactly (`ops/bm25_rescore.py`, K3).
+It is the BM25 lane's plain harness (`ops/bm25_lane.py`): on a budgeted snapshot the
+lane ranks its candidates with `wide_topk(exact=False)` and rescores the top-F exactly
+(`ops/bm25_rescore.py`, K3).
 """
 from __future__ import annotations
 
 import torch
 
-from wax_tpu_torch.index.lex import LexIndex
 from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 
 __all__ = [
-    "bm25_candidates_topk",
     "candidate_scores_sorted",
     "merge_sorted_runs",
     "segment_sum_sorted",
@@ -175,37 +174,3 @@ def wide_topk(scores, k: int, exact: bool = True):
     _, o2 = torch.sort(cv, dim=-1, descending=True, stable=True)
     o2 = o2[:, :k]
     return torch.gather(cv, 1, o2), torch.gather(gp, 1, o2)
-
-
-def bm25_candidates_topk(term_ids, index: LexIndex, k: int, mode: str = "any", fetch: int | None = None):
-    """Candidate-set BM25 top-k, the contract of `ops/bm25.py` `bm25_topk`:
-    (scores [B, k], rows [B, k], frame_ids [B, k]); non-matches are (NEG_INF, -1, -1).
-
-    When the snapshot carries a forward index (the budget truncated a term), the
-    top-`fetch` candidates (default max(4k, 256)), generated OR-mode ("count"-ranked for
-    AND queries), are rescored exactly against it."""
-    if index.wnorm is None:
-        raise ValueError("snapshot has no precomputed wnorm")
-    k = int(min(k, index.frame_ids.shape[0]))
-    term_ids = torch.as_tensor(term_ids).to(index.device, torch.int32)
-    if term_ids.dim() == 1:
-        term_ids = term_ids[None, :]
-    if index.fwd_tids is None:
-        rows, scores = candidate_scores_sorted(term_ids, index.doc_rows, index.wnorm, index.offsets,
-                                               index.idf, int(index.max_df), mode)
-        vals, pos = wide_topk(scores, k)
-        sel = torch.gather(rows, 1, pos)
-    else:
-        from wax_tpu_torch.ops.bm25_rescore import rescore_topk
-
-        rows, scores = candidate_scores_sorted(term_ids, index.doc_rows, index.wnorm, index.offsets,
-                                               index.idf, int(index.max_df), "count" if mode == "all" else "any")
-        f = int(min(fetch if fetch is not None else max(4 * k, 256), scores.shape[-1]))
-        cvals, cpos = wide_topk(scores, f, exact=False)
-        crows = torch.where(cvals > NEG_INF * 0.5, torch.gather(rows, 1, cpos), -1)
-        vals, sel = rescore_topk(term_ids, crows, index.fwd_tids, index.fwd_wnorm, index.idf, k, mode,
-                                 fwd_width=index.fwd_width, fwd_fused=index.fwd_fused)
-    ok = vals > NEG_INF * 0.5
-    sel = torch.where(ok, sel, 0).long()
-    fids = torch.where(ok, index.frame_ids[sel], -1).to(torch.int32)
-    return vals, torch.where(ok, sel, -1).to(torch.int32), fids

@@ -18,7 +18,8 @@ merge-path partition of its postings. The whole plane (sel 0) walks each CTA's r
 8,192-row tiles; the selection (sel > 0) walks each CTA's postings in merge order, in
 windows merged on chip. The wrapper counts the call's walk as `k8.walk.rows` (sel 0) or
 `k8.walk.postings` (sel > 0). `launch_plan` is the plain mirror of the C choice of
-G (`wax_k8_plan`, read on a card by `device_plan`).
+G (`wax_k8_plan`, read on a card by `device_plan`). `kernels_take` says whether the
+BM25 lane's "auto" gives a snapshot to the kernels; `ops/bm25_lane.py` runs the lane.
 
 Left out: the per-term reversed postings copies `doc_rows_rev` / `wnorm_rev` and the
 window padding of the postings arrays, TPU-only layout the TPU kernel's DMAs read.
@@ -32,13 +33,10 @@ import torch
 
 from wax_tpu_torch.index.lex import LexIndex
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
-from wax_tpu_torch.ops.bm25_candidates import wide_topk
-from wax_tpu_torch.ops.bm25_chunked_pallas import _SEL_LEVELS, chunked_candidates_sel
-from wax_tpu_torch.ops.bm25_rescore import rescore_topk
-from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
+from wax_tpu_torch.ops.topk import NEG_INF
 from wax_tpu_torch.utils.profiling import count
 
-__all__ = ["bm25_candidates_topk_pallas", "candidate_scores_pallas", "dma_window", "launch_plan", "device_plan"]
+__all__ = ["candidate_scores_pallas", "dma_window", "kernels_take", "launch_plan", "device_plan"]
 
 _ALIGN = 1024  # plane positions per chunk (the TPU's (8, 128) tile)
 _SEL_MAX = 4
@@ -53,6 +51,8 @@ _WALK_MIN = 65536  # csrc/bm25_candidates.cu WALK_MIN: postings a CTA owns at le
 _PART_BYTES = 256 << 20  # csrc/bm25_candidates.cu PART_BYTES: the sel merge's scratch at most
 _G_MAX = 512  # csrc/bm25_candidates.cu G_MAX: CTAs a query at most
 _PLAN_KEYS = ("g", "threads", "tile")
+# the TPU candidate kernel's plane guard, kept so "auto" resolves as it does there
+_PALLAS_MAX_PLANE_ELEMS = 512 * 1024
 _tickets: dict = {}  # (device, stream) -> i32 [>= B] at zero: the sel merge's tickets
 
 
@@ -102,6 +102,28 @@ def _tickets_for(device: torch.device, b: int) -> torch.Tensor:
     if t is None or t.numel() < b:
         t = _tickets[key] = torch.zeros(max(b, 256), dtype=torch.int32, device=device)
     return t
+
+
+def _slots_pow2(q: int) -> int:
+    """Q2: the power of two >= max(Q, 2) term slots a query takes in the plane."""
+    q2 = 2
+    while q2 < q:
+        q2 *= 2
+    return q2
+
+
+def kernels_take(index: LexIndex, q: int = 16) -> bool:
+    """Whether the BM25 lane's "auto" gives `index`, queried with `q` term slots, to
+    the kernels on a card: while the TPU candidate kernel's plane guard passes, as the
+    JAX package resolves. The one exception is the port's own: a budgeted snapshot
+    without impact chunks (2^23 rows a shard and more, `index/lex.PK_MIN_QB`), which
+    the JAX package never builds, goes to K8's selection mode while K8 can select from
+    its plane and has a slot for every term."""
+    q2 = _slots_pow2(q)
+    plane = q2 * dma_window(int(index.max_df))
+    if index.fwd_tids is not None and index.pk_chunks is None:
+        return plane <= _MAX_SEL_CHUNKS * _ALIGN and q2 <= _MAX_SLOTS
+    return plane <= _PALLAS_MAX_PLANE_ELEMS
 
 
 def dma_window(max_df: int) -> int:
@@ -199,9 +221,7 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
     b, q = term_ids.shape
-    q2 = 2
-    while q2 < q:
-        q2 *= 2
+    q2 = _slots_pow2(q)
     w2 = dma_window(int(max_df))
     if q2 > _MAX_SLOTS or not 0 <= sel <= _SEL_MAX:
         raise ValueError(f"K8 takes at most {_MAX_SLOTS} query terms and 0 <= sel <= {_SEL_MAX}, got Q={q}, sel={sel}")
@@ -236,44 +256,3 @@ def candidate_scores_pallas(term_ids, doc_rows, wnorm, offsets, idf, *, max_df: 
                scores.data_ptr() if sel else 0, 0 if part is None else part.data_ptr(),
                0 if tickets is None else tickets.data_ptr(), b, q, q2, w2, _MODES[mode], sel, g)
     return rows, scores
-
-
-def bm25_candidates_topk_pallas(term_ids, index: LexIndex, k: int, mode: str = "any", fetch: int | None = None):
-    """Candidate-set BM25 top-k through the kernels, the contract of `bm25_topk`.
-
-    Unbudgeted snapshot: K8, then the stable wide top-k. Budgeted (a forward index is
-    present): candidates are generated OR-mode ("count"-ranked for AND queries), by K4
-    when the snapshot carries impact chunks, else by K8 with in-kernel selection, and
-    the top-`fetch` (default max(4k, 256)) are rescored exactly (K3).
-
-    Returns (scores [B, k], rows [B, k], frame_ids [B, k]); non-matches (NEG_INF, -1, -1)."""
-    if index.wnorm is None:
-        raise ValueError("snapshot has no precomputed wnorm")
-    k = int(min(k, index.frame_ids.shape[0]))
-    term_ids = torch.as_tensor(term_ids).to(index.device, torch.int32)
-    if term_ids.dim() == 1:
-        term_ids = term_ids[None, :]
-    if index.fwd_tids is not None:
-        gen_mode = "count" if mode == "all" else "any"
-        if index.pk_chunks is not None:
-            cand_rows, keys = chunked_candidates_sel(term_ids, index.pk_chunks, index.chunk_base,
-                                                     index.chunk_counts, qb=index.pk_qb,
-                                                     max_chunks=index.pk_max_chunks, mode=gen_mode, sel=_SEL_LEVELS)
-        else:
-            cand_rows, keys = candidate_scores_pallas(term_ids, index.doc_rows, index.wnorm, index.offsets,
-                                                      index.idf, max_df=int(index.max_df), mode=gen_mode,
-                                                      sel=_SEL_LEVELS)
-        f = int(min(fetch if fetch is not None else max(4 * k, 256), keys.shape[-1]))
-        _, cpos = stable_top_k(keys, f)
-        crows = torch.gather(cand_rows, 1, cpos)
-        vals, sel = rescore_topk(term_ids, crows, index.fwd_tids, index.fwd_wnorm, index.idf, k, mode,
-                                 fwd_width=index.fwd_width, fwd_fused=index.fwd_fused)
-    else:
-        out_rows, out_scores = candidate_scores_pallas(term_ids, index.doc_rows, index.wnorm, index.offsets,
-                                                       index.idf, max_df=int(index.max_df), mode=mode)
-        vals, pos = wide_topk(out_scores, k)
-        sel = torch.gather(out_rows, 1, pos)
-    ok = vals > NEG_INF * 0.5
-    sel = torch.where(ok, sel, 0).long()
-    fids = torch.where(ok, index.frame_ids[sel], -1).to(torch.int32)
-    return vals, torch.where(ok, sel, -1).to(torch.int32), fids

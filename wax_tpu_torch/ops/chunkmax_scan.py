@@ -25,10 +25,21 @@ from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk
 from wax_tpu_torch.utils.device import full_f32_matmul
 from wax_tpu_torch.utils.profiling import device_span
 
-__all__ = ["chunkmax_scan_topk", "chunk_maxima", "mma_plan"]
+__all__ = ["chunkmax_scan_topk", "chunk_maxima", "mma_plan", "takes_chunkmax"]
 
 _CHUNK = 128
 _TN = 2048  # the JAX package's corpus tile: the row count must be a multiple of it
+# the rows from which a row block takes this lane, and the most results it serves (the
+# JAX package's thresholds; tests lower the floor to run the lane on small corpora)
+_MIN_ROWS = 524_288
+_MAX_K = 100
+
+
+def takes_chunkmax(rows: int, k: int, contiguous: bool) -> bool:
+    """Whether a row block of `rows` rows asked for its top `k` takes the chunkmax lane:
+    live rows in a dense prefix, rows a multiple of 2,048 and at least 524,288, k at
+    most 100. Flat scan's "auto" and every shard of the sharded dense lanes ask it."""
+    return contiguous and rows % _TN == 0 and rows >= _MIN_ROWS and k <= _MAX_K
 
 
 @full_f32_matmul

@@ -41,14 +41,18 @@ import functools
 import torch
 
 from wax_tpu_torch.index.dense import DenseIndex, Similarity
+from wax_tpu_torch.ops import chunkmax_scan
 from wax_tpu_torch.ops._build import launch, load_library, on_cpu
 from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk, masked_top_k, stable_top_k
 from wax_tpu_torch.utils.device import full_f32_matmul
 from wax_tpu_torch.utils.profiling import device_span
 
 __all__ = [
+    "blockmax_scan_topk",
     "flat_scan_topk",
+    "packed_sel_scan_topk",
     "scan_scores",
+    "scores_f32",
     "normalize_rows",
     "packed_sel_tiles",
     "packed_topk_tiles",
@@ -94,7 +98,7 @@ _ROW_BLOCK = 1 << 20
 
 
 @full_f32_matmul
-def _scores_f32(q: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+def scores_f32(q: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
     """[B, N] f32 dot products, plus the row bias when given. bf16 operands are
     widened first, _ROW_BLOCK rows at a time (their products are exact in f32), so
     every path accumulates in f32, TF32 turned on or not."""
@@ -113,7 +117,7 @@ def _scores_f32(q: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor | None = 
 
 def scan_scores(queries: torch.Tensor, index: DenseIndex) -> torch.Tensor:
     """Full [B, capacity] masked score matrix (the "xla" path's building block)."""
-    scores = _scores_f32(queries.to(index.emb.dtype), index.emb)
+    scores = scores_f32(queries.to(index.emb.dtype), index.emb)
     if index.similarity == Similarity.EUCLIDEAN:
         # ||q - d||^2 = ||q||^2 - 2 q.d + ||d||^2 ; rank by negated distance.
         qn = (queries.float() ** 2).sum(dim=-1, keepdim=True)
@@ -219,7 +223,7 @@ def _packed_sel_topk_plain(q, emb, bias, k: int, tn: int) -> torch.Tensor:
     """Plain twin of K1: per-tile k largest packed keys, [B, N/tn * k] i32, each
     tile's k sorted descending."""
     b, n = q.shape[0], emb.shape[0]
-    keys = _packed_keys(_scores_f32(q, emb) + bias[None, :], tn).reshape(b, n // tn, tn)
+    keys = _packed_keys(scores_f32(q, emb) + bias[None, :], tn).reshape(b, n // tn, tn)
     top, _ = torch.sort(keys, dim=-1, descending=True, stable=True)
     return top[:, :, :k].reshape(b, -1)
 
@@ -252,8 +256,12 @@ def _decode_packed(keys: torch.Tensor, k: int, tn: int):
     return sbits.view(torch.float32).reshape(b, -1), gcol.reshape(b, -1)
 
 
-def _packed_sel_scan_topk(q, emb, bias, k: int, tn: int):
-    svals, gcol = _decode_packed(packed_sel_tiles(q, emb, bias, k, tn), k, tn)
+def packed_sel_scan_topk(q, emb, bias, k: int):
+    """K1's top-k over one row block: (vals [B, k] f32 at 2^-12 relative, rows [B, k]
+    i32, -1 dead), queries cast to the rows' dtype, tiles of the widest width that
+    divides the rows."""
+    tn = _pick_tn(emb.shape[0])
+    svals, gcol = _decode_packed(packed_sel_tiles(q.to(emb.dtype).contiguous(), emb, bias, k, tn), k, tn)
     return _merge_tiles(svals, gcol, k)
 
 
@@ -292,7 +300,7 @@ def _scan_topk_plain(q, emb, bias, k: int, tn: int):
     """Plain twin of K2: per tile the k best by (f32 score desc, column asc) as
     (vals f32, global rows i32), each [B, N/tn * k]."""
     b, n = q.shape[0], emb.shape[0]
-    scores = (_scores_f32(q, emb) + bias[None, :]).reshape(b, n // tn, tn)
+    scores = (scores_f32(q, emb) + bias[None, :]).reshape(b, n // tn, tn)
     vals, local = stable_top_k(scores, k)
     base = torch.arange(n // tn, device=q.device)[None, :, None] * tn
     return vals.reshape(b, -1), (local + base).to(torch.int32).reshape(b, -1)
@@ -325,8 +333,11 @@ def _pallas_scan_topk(q, emb, bias, k: int, tn: int):
 # ---------------------------------------------------------------------------------
 
 
-def _blockmax_topk(q, emb, bias, k: int):
-    vals, rows = blockmax_topk(_scores_f32(q, emb) + bias[None, :], k)
+def blockmax_scan_topk(q, emb, bias, k: int):
+    """Exact top-k over one row block in plain torch: (vals [B, k] f32, rows [B, k],
+    -1 dead) from the f32-accumulated products of the queries cast to the rows'
+    dtype, plus the row bias, through `blockmax_topk`."""
+    vals, rows = blockmax_topk(scores_f32(q.to(emb.dtype), emb, bias), k)
     rows = torch.where(vals <= NEG_INF * 0.5, -1, rows)
     return vals, rows
 
@@ -337,7 +348,7 @@ def _blockmax16_topk(q, emb, bias, k: int):
     max(2k, k+16) candidates, ranked by (exact score desc, row asc); the rescore in f32
     whatever the TF32 setting."""
     n = emb.shape[0]
-    coarse = (_scores_f32(q, emb) + bias[None, :]).to(torch.bfloat16)
+    coarse = (scores_f32(q, emb) + bias[None, :]).to(torch.bfloat16)
     rw = int(min(max(2 * k, k + 16), n))
     _, cand = blockmax_topk(coarse, rw)  # [B, RW] distinct rows
     cand = cand.long()
@@ -405,7 +416,7 @@ def _flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, backend: s
             backend = "xla"
         elif index.capacity <= 131072:
             backend = "pallas_packed_sel"
-        elif index.capacity >= 524288 and index.capacity % 2048 == 0 and index.contiguous and k <= 100:
+        elif chunkmax_scan.takes_chunkmax(index.capacity, k, index.contiguous):
             backend = "chunkmax"
         else:
             backend = "blockmax"
@@ -427,15 +438,13 @@ def _flat_scan_topk(queries: torch.Tensor, index: DenseIndex, k: int, backend: s
     q = queries.to(index.emb.dtype).contiguous()
     bias = _index_bias(index)
     if backend == "blockmax":
-        vals, rows = _blockmax_topk(q, index.emb, bias, k)
+        vals, rows = blockmax_scan_topk(q, index.emb, bias, k)
     elif backend == "blockmax16":
         vals, rows = _blockmax16_topk(q, index.emb, bias, k)
     elif backend == "chunkmax":
-        from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk
-
-        vals, rows = chunkmax_scan_topk(q, index.emb, bias, k)
+        vals, rows = chunkmax_scan.chunkmax_scan_topk(q, index.emb, bias, k)
     elif backend == "pallas_packed_sel":
-        vals, rows = _packed_sel_scan_topk(q, index.emb, bias, k, tn)
+        vals, rows = packed_sel_scan_topk(q, index.emb, bias, k)
     elif backend == "pallas_packed":
         vals, rows = _packed_scan_topk(q, index.emb, bias, k, tn)
     elif backend in ("pallas", "pallas_exact"):

@@ -12,19 +12,19 @@ tie-breaks, so a two-level mesh answers as the flat mesh bit for bit.
 Lanes and the kernels they run on CUDA tensors, chosen per shard from its local rows
 as JAX chooses (but for shards of 2^23 rows and more, below):
 
-  * dense: chunkmax (K6 + K7) at `_CHUNKMAX_MIN_LOCAL_ROWS` rows or more on a
-    contiguous shard, the packed-key select kernel (K1) at `_SELKERNEL_MIN_LOCAL_ROWS`
-    or more, else exact blockmax in plain torch;
-  * BM25: candidate generation, then the exact forward-index rescore (K3) when the
-    postings budget truncated a term. With the backend "candidates_pallas" the
-    generator is the chunked kernel (K4) when the snapshot carries impact chunks, else
-    the unchunked candidate kernel (K8: its whole plane on an exact store, its
-    in-kernel top 3 per slot position before a rescore); with "candidates", the
-    plain-torch merge harness. A shard of 2^23 rows or more gets no impact chunks
-    (`index/lex.PK_MIN_QB`: K4's packed ranking loses recall there), so its kernel
-    lane generates with K8 in its selection mode, and `auto` takes that lane while
-    K8 can select from its plane (`_resolve_lex_backend`); the JAX package builds
-    chunks at every size and applies the plane guard to every snapshot.
+  * dense: chunkmax (K6 + K7) where `chunkmax_scan.takes_chunkmax` allows it for the
+    local rows and the fetch, the packed-key select kernel (K1,
+    `flat_scan.packed_sel_scan_topk`) at `_SELKERNEL_MIN_LOCAL_ROWS` or more, else exact
+    blockmax in plain torch (`flat_scan.blockmax_scan_topk`);
+  * BM25: `ops/bm25_lane.bm25_candidates` on the shard's one-device view
+    (`ShardedLexIndex.shard`), then the exact forward-index rescore (K3) when the
+    postings budget truncated a term. The backend "candidates_pallas" generates with
+    the kernels (K4, or K8 on a shard without impact chunks), "candidates" with the
+    plain merge harness; "auto" takes the kernels on a card where
+    `bm25_candidates_pallas.kernels_take` allows them. A shard of 2^23 rows or more gets
+    no impact chunks (`index/lex.PK_MIN_QB`: K4's packed ranking loses recall there),
+    so its kernel lane generates with K8 in its selection mode; the JAX package builds
+    chunks at every size.
 
 The sharded lexical index is built with torch ops on the device its postings live on
 (`shard_lex_postings`, on `index/lex.lex_arrays`, as the one-device snapshot is);
@@ -36,19 +36,19 @@ weights, does not occur in the port).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from wax_tpu_torch.index.lex import LexIndexBuilder, lex_arrays
-from wax_tpu_torch.ops.bm25_candidates import candidate_scores_sorted, wide_topk
-from wax_tpu_torch.ops.bm25_candidates_pallas import (_ALIGN, _MAX_SEL_CHUNKS, _MAX_SLOTS, candidate_scores_pallas,
-                                                      dma_window)
-from wax_tpu_torch.ops.bm25_chunked_pallas import _SEL_LEVELS, chunked_candidates_sel
+from wax_tpu_torch.index.lex import LexIndex, LexIndexBuilder, lex_arrays
+from wax_tpu_torch.ops.bm25_candidates_pallas import kernels_take
+from wax_tpu_torch.ops.bm25_lane import bm25_candidates, lane_frame_ids
 from wax_tpu_torch.ops.bm25_rescore import rescore_topk
-from wax_tpu_torch.ops.flat_scan import _scores_f32
-from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk, stable_top_k
+from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk, takes_chunkmax
+from wax_tpu_torch.ops.flat_scan import blockmax_scan_topk, packed_sel_scan_topk
+from wax_tpu_torch.ops.topk import NEG_INF, stable_top_k
 from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
 from wax_tpu_torch.parallel.mesh import Mesh, corpus_shards, on_device, replicate
 from wax_tpu_torch.parallel.sharded_scan import ShardedDenseIndex
@@ -56,21 +56,16 @@ from wax_tpu_torch.utils.profiling import count, device_span
 
 __all__ = ["ShardedLexIndex", "shard_lex_index", "shard_lex_postings", "sharded_hybrid_topk", "sharded_bm25_topk"]
 
-# local-shard row count from which the dense lane switches from blockmax to chunkmax
-# (tests lower these to run every branch on small CPU corpora)
-_CHUNKMAX_MIN_LOCAL_ROWS = 524_288
 # local-shard row count from which the dense lane switches from exact blockmax to the
-# packed select kernel (flat_scan's `auto` regime above 64K rows)
+# packed select kernel (flat_scan's `auto` regime above 64K rows; tests lower it to
+# run every branch on small CPU corpora)
 _SELKERNEL_MIN_LOCAL_ROWS = 65_536
-# the TPU candidate kernel's plane guard, kept so "auto" resolves as it does there
-_PALLAS_MAX_PLANE_ELEMS = 512 * 1024
-# the most plane positions K8 selects from in its selection mode
-_K8_SEL_MAX_PLANE = _MAX_SEL_CHUNKS * _ALIGN
 
 
-@dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True)
 class ShardedLexIndex:
-    """Row-sharded CSR postings; `field[s]` is shard s's array.
+    """Row-sharded CSR postings; `field[s]` is shard s's array, `shard(s)` the shard as
+    a one-device snapshot.
 
     Each field is a tuple of the shards' arrays on their devices, padded to common
     shapes (shown per shard below). `row_base` maps local rows to the global row space
@@ -87,6 +82,7 @@ class ShardedLexIndex:
     frame_ids: tuple  # [N_local] i32
     live: tuple  # [N_local] bool
     row_base: tuple  # 0-d i32
+    count: tuple  # 0-d i32 rows that hold a snapshot row
     avgdl: torch.Tensor  # 0-d f32 on the lead device
     wnorm: tuple  # [P_max] f32 tf-normalised weights (0 dead)
     fwd_tids: tuple | None = None  # [N_local, L] i32
@@ -104,6 +100,17 @@ class ShardedLexIndex:
     def n_local(self) -> int:
         """Rows per shard."""
         return self.doc_len[0].shape[0]
+
+    def shard(self, s: int) -> LexIndex:
+        """Shard s as a one-device snapshot: its arrays (`active` from `live`) and the
+        mean length on its device. Built once per index."""
+        return self._shards[s]
+
+    @functools.cached_property
+    def _shards(self) -> tuple:
+        fields = {f.name: getattr(self, "live" if f.name == "active" else f.name) for f in dataclasses.fields(LexIndex)}
+        return tuple(LexIndex(**{n: v[s] if isinstance(v, tuple) else v for n, v in fields.items()}
+                              | {"avgdl": self.avgdl.to(self.doc_len[s].device)}) for s in range(len(self.doc_len)))
 
 
 def shard_lex_index(builder: LexIndexBuilder, mesh: Mesh, n_rows_global: int) -> ShardedLexIndex:
@@ -126,6 +133,7 @@ def shard_lex_postings(mesh: Mesh, n_rows_global: int, post_offsets, doc_rows, t
     a = lex_arrays(corpus_shards(mesh), n_rows_global, post_offsets, doc_rows, tfs, doc_len, frame_ids, active,
                    postings_budget=postings_budget, avgdl=avgdl)
     per = a["doc_len"].shape[1]
+    n = min(doc_len.shape[0], n_rows_global)
 
     def put(name):  # [S, ...] -> each shard's entry on its device
         x = a.pop(name)
@@ -136,6 +144,8 @@ def shard_lex_postings(mesh: Mesh, n_rows_global: int, post_offsets, doc_rows, t
     return ShardedLexIndex(
         **{f: put(f) for f in fields},
         row_base=tuple(torch.tensor(si * per, dtype=torch.int32, device=d) for si, d in enumerate(mesh.shard_devices)),
+        count=tuple(torch.tensor(min(max(n - si * per, 0), per), dtype=torch.int32, device=d)
+                    for si, d in enumerate(mesh.shard_devices)),
         avgdl=torch.tensor(a["avgdl"], dtype=torch.float32, device=mesh.device),
         max_df=a["max_df"], pk_qb=a["pk_qb"], pk_max_chunks=a["pk_max_chunks"], fwd_width=a["fwd_width"],
     )
@@ -143,87 +153,26 @@ def shard_lex_postings(mesh: Mesh, n_rows_global: int, post_offsets, doc_rows, t
 
 def _resolve_lex_backend(lex: ShardedLexIndex, backend: str, q2: int = 16) -> str:
     """The BM25 lane's implementation. "auto" decides on the device the postings
-    live on: the CPU takes the plain merge harness ("candidates"); CUDA resolves as
-    the TPU does, the kernels ("candidates_pallas") while the TPU kernel's plane guard
-    passes, else the harness. The one exception is the port's own: a truncated
-    snapshot without impact chunks (2^23 rows a shard and more, `PK_MIN_QB`), which the
-    JAX package never builds, takes the kernels while K8 can select from its plane
-    (`_K8_SEL_MAX_PLANE`)."""
-    if backend != "auto":
-        return backend
-    if lex.doc_rows[0].device.type != "cuda":
-        return "candidates"
-    q2_pow2 = 2
-    while q2_pow2 < q2:
-        q2_pow2 *= 2
-    plane = q2_pow2 * dma_window(int(lex.max_df))
-    if lex.fwd_tids is not None and lex.pk_chunks is None:
-        return "candidates_pallas" if plane <= _K8_SEL_MAX_PLANE and q2_pow2 <= _MAX_SLOTS else "candidates"
-    return "candidates" if plane > _PALLAS_MAX_PLANE_ELEMS else "candidates_pallas"
-
-
-def _local_bm25_candidates_topk(tids, doc_rows, wnorm, offsets, idf, kk: int, w: int, mode: str,
-                                pallas: bool, fwd_tids=None, fwd_wnorm=None, rescore: bool = False,
-                                chunked=None, fwd_width: int = 0, fwd_fused=None):
-    """One shard's candidate-set BM25 top-k: (vals, local rows), rows -1 dead.
-
-    With `rescore`, candidates are generated OR-mode ("count"-ranked for AND queries)
-    from the budgeted postings and the top-F are rescored exactly against the shard's
-    forward index. With `pallas` the kernels generate them: the chunked kernel (K4)
-    when `chunked` = (pk, chunk_base, chunk_counts, qb, max_chunks) is given, else K8
-    (its in-kernel top 3 per slot position when rescoring, its whole plane
-    otherwise)."""
-    gen_mode = ("count" if mode == "all" else "any") if rescore else mode
-    dev = tids.device
-    with device_span("bm25.candidates", dev):
-        if rescore and pallas:
-            if chunked is not None:
-                pk, cbase, ccnt, pk_qb, pk_maxc = chunked
-                cand_rows, keys = chunked_candidates_sel(tids, pk, cbase, ccnt, qb=pk_qb, max_chunks=pk_maxc,
-                                                         mode=gen_mode, sel=_SEL_LEVELS)
-            else:
-                cand_rows, keys = candidate_scores_pallas(tids, doc_rows, wnorm, offsets, idf, max_df=w,
-                                                          mode=gen_mode, sel=_SEL_LEVELS)
-            f = int(min(max(4 * kk, 256), keys.shape[-1]))
-            _, cpos = stable_top_k(keys, f)
-            crows = torch.gather(cand_rows, 1, cpos)
-        else:
-            if pallas:
-                rows, scores = candidate_scores_pallas(tids, doc_rows, wnorm, offsets, idf, max_df=w, mode=gen_mode)
-            else:
-                rows, scores = candidate_scores_sorted(tids, doc_rows, wnorm, offsets, idf, w, gen_mode)
-            if rescore:
-                f = int(min(max(4 * kk, 256), scores.shape[-1]))
-                cvals, cpos = wide_topk(scores, f, exact=False)
-                crows = torch.where(cvals > NEG_INF * 0.5, torch.gather(rows, 1, cpos), -1)
-    if rescore:
-        with device_span("bm25.rescore", dev):
-            return rescore_topk(tids, crows, fwd_tids, fwd_wnorm, idf, kk, mode,
-                                fwd_width=fwd_width, fwd_fused=fwd_fused)
-    vals, pos = wide_topk(scores, kk)
-    sel = torch.gather(rows, 1, pos)
-    ok = vals > NEG_INF * 0.5
-    return torch.where(ok, vals, NEG_INF), torch.where(ok, sel, -1)
+    live on: the CPU takes the plain merge harness ("candidates"), CUDA the kernels
+    ("candidates_pallas") where `kernels_take` allows them for `q2` term slots."""
+    if backend == "auto":
+        on_card = lex.doc_rows[0].device.type == "cuda"
+        backend = "candidates_pallas" if on_card and kernels_take(lex.shard(0), q2) else "candidates"
+    if backend not in ("candidates", "candidates_pallas"):
+        raise ValueError(f"unknown BM25 backend {backend!r} (the port has 'candidates' and "
+                         "'candidates_pallas')")
+    return backend
 
 
 def _bm25_lane(tids, lex: ShardedLexIndex, s: int, kk: int, mode: str, backend: str):
     """The BM25 lane on shard s: (vals [B, kk], frame ids [B, kk])."""
-    if backend not in ("candidates", "candidates_pallas"):
-        raise ValueError(f"unknown BM25 backend {backend!r} (the port has 'candidates' and "
-                         "'candidates_pallas')")
-    rescore = lex.fwd_tids is not None
-    chunked = None
-    if rescore and backend == "candidates_pallas" and lex.pk_chunks is not None:
-        chunked = (lex.pk_chunks[s], lex.chunk_base[s], lex.chunk_counts[s], lex.pk_qb, lex.pk_max_chunks)
-    vals, rows = _local_bm25_candidates_topk(
-        tids, lex.doc_rows[s], lex.wnorm[s], lex.offsets[s], lex.idf[s], kk, int(lex.max_df), mode,
-        pallas=backend == "candidates_pallas",
-        fwd_tids=lex.fwd_tids[s] if rescore else None, fwd_wnorm=lex.fwd_wnorm[s] if rescore else None,
-        rescore=rescore, chunked=chunked, fwd_width=lex.fwd_width,
-        fwd_fused=lex.fwd_fused[s] if rescore and lex.fwd_fused is not None else None,
-    )
-    fids = torch.where(vals > NEG_INF * 0.5, lex.frame_ids[s][rows.clamp(min=0).long()], -1)
-    return vals, fids.to(torch.int32)
+    index = lex.shard(s)
+    vals, rows = bm25_candidates(tids, index, kk, mode, backend == "candidates_pallas")
+    if index.fwd_tids is not None:
+        with device_span("bm25.rescore", index.device):
+            vals, rows = rescore_topk(tids, rows, index.fwd_tids, index.fwd_wnorm, index.idf, kk, mode,
+                                      fwd_width=index.fwd_width, fwd_fused=index.fwd_fused)
+    return vals, lane_frame_ids(index, vals, rows)
 
 
 def _term_batches(term_ids, mesh: Mesh) -> tuple:
@@ -255,19 +204,6 @@ def sharded_bm25_topk(term_ids, lex: ShardedLexIndex, k: int, mesh: Mesh, mode: 
     kk = min(int(k), lex.n_local)
     vals, fids = _bm25_shards(_term_batches(term_ids, mesh), lex, kk, mode, backend, mesh)
     return merge_topk_across_mesh(vals, fids, int(k), mesh)
-
-
-def _dense_lane(q, emb, bias, kk: int, use_chunkmax: bool, use_selkernel: bool):
-    """The dense lane on one shard's rows: (vals [B, kk], local rows [B, kk])."""
-    if use_chunkmax:
-        from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk
-
-        return chunkmax_scan_topk(q, emb, bias, kk)
-    if use_selkernel:
-        from wax_tpu_torch.ops.flat_scan import _packed_sel_scan_topk, _pick_tn
-
-        return _packed_sel_scan_topk(q.to(emb.dtype).contiguous(), emb, bias, kk, _pick_tn(emb.shape[0]))
-    return blockmax_topk(_scores_f32(q.to(emb.dtype), emb, bias), kk)
 
 
 def _rrf_on_device(dfid, lfid, k: int, fetch: int, w_dense: float, w_bm25: float, rrf_k: float):
@@ -312,10 +248,13 @@ def sharded_hybrid_topk(queries, term_ids, dense: ShardedDenseIndex, lex: Sharde
         count(f"sharded_hybrid.lex_route.{lex_backend}")
         fetch = max(2 * int(k), 16)
         local_rows = dense.local_rows
-        use_chunkmax = (dense.contiguous and local_rows % 2048 == 0 and local_rows >= _CHUNKMAX_MIN_LOCAL_ROWS
-                        and min(fetch, local_rows) <= 100)
-        use_selkernel = (not use_chunkmax and _SELKERNEL_MIN_LOCAL_ROWS <= local_rows
-                         and min(fetch, local_rows) <= 100)
+        # the dense lane's body for every shard's rows: (vals [B, kk], local rows [B, kk])
+        if takes_chunkmax(local_rows, min(fetch, local_rows), dense.contiguous):
+            dense_lane = chunkmax_scan_topk
+        elif _SELKERNEL_MIN_LOCAL_ROWS <= local_rows and min(fetch, local_rows) <= 100:
+            dense_lane = packed_sel_scan_topk
+        else:
+            dense_lane = blockmax_scan_topk
         qs = replicate(mesh, torch.as_tensor(queries, dtype=torch.float32))
         tids = _term_batches(term_ids, mesh)
 
@@ -323,7 +262,7 @@ def sharded_hybrid_topk(queries, term_ids, dense: ShardedDenseIndex, lex: Sharde
         for s, dev in enumerate(mesh.shard_devices):
             emb, d_fids, d_bias = dense.shard(s)
             with on_device(dev), device_span("sharded_hybrid.dense", dev):
-                dv, drows = _dense_lane(qs[s], emb, d_bias, min(fetch, local_rows), use_chunkmax, use_selkernel)
+                dv, drows = dense_lane(qs[s], emb, d_bias, min(fetch, local_rows))
                 dvals.append(dv)
                 dfids.append(torch.where(dv > NEG_INF * 0.5, d_fids[drows.clamp(min=0).long()], -1).to(torch.int32))
         lvals, lfids = _bm25_shards(tids, lex, min(fetch, lex.n_local), "any", lex_backend, mesh)

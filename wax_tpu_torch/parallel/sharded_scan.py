@@ -6,11 +6,11 @@ replicated; each shard computes its exact local top-k and the candidates merge o
 lead device (`parallel/merge.py`).
 
 A shard's local top-k takes the chunkmax dense lane (`ops/chunkmax_scan`: K6's chunk
-maxima, the k best chunks, K7's exact rescore; no [B, N] score plane) when its rows
-allow it, by the rule of the sharded hybrid program's dense lane: a contiguous index, at
-least `_CHUNKMAX_MIN_LOCAL_ROWS` local rows, a multiple of 2,048, and k <= 100. Other
-shards keep the JAX module's XLA body in plain torch: f32-accumulated products plus the
-row bias (f32 when a process turns TF32 on), then `blockmax_topk`. The JAX module runs
+maxima, the k best chunks, K7's exact rescore; no [B, N] score plane) where
+`chunkmax_scan.takes_chunkmax` allows it for its local rows, as the sharded hybrid
+program's dense lane does. Other shards keep the JAX module's XLA body in plain torch
+(`flat_scan.blockmax_scan_topk`): f32-accumulated products plus the row bias (f32 when
+a process turns TF32 on), then `blockmax_topk`. The JAX module runs
 XLA on every shard; the two routes give the same scores up to summation order, and the
 same ids but for near-ties of the k-th score and exact ties (chunkmax ranks exactly tied
 rows by their chunk's rank, blockmax by row).
@@ -26,16 +26,14 @@ from dataclasses import dataclass
 import torch
 
 from wax_tpu_torch.index.dense import DenseIndex
-from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk
-from wax_tpu_torch.ops.flat_scan import _scores_f32
-from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk
+from wax_tpu_torch.ops.chunkmax_scan import chunkmax_scan_topk, takes_chunkmax
+from wax_tpu_torch.ops.flat_scan import blockmax_scan_topk
+from wax_tpu_torch.ops.topk import NEG_INF, blockmax_topk  # noqa: F401 (the benchmark's fault tests patch it here)
 from wax_tpu_torch.parallel.merge import merge_topk_across_mesh
 from wax_tpu_torch.parallel.mesh import Mesh, corpus_shards, on_device, replicate, shard_rows
 from wax_tpu_torch.utils.profiling import count, device_span
 
 __all__ = ["ShardedDenseIndex", "shard_dense_index", "sharded_flat_scan_topk"]
-
-_CHUNKMAX_MIN_LOCAL_ROWS = 524_288  # as `parallel/sharded_hybrid` and flat_scan's "auto"
 
 
 @dataclass(frozen=True)
@@ -100,7 +98,7 @@ def sharded_flat_scan_topk(queries, index: ShardedDenseIndex, k: int, mesh: Mesh
         qs = replicate(mesh, q)
         n = index.local_rows
         kk = min(k, n)
-        chunkmax = index.contiguous and n % 2048 == 0 and n >= _CHUNKMAX_MIN_LOCAL_ROWS and kk <= 100
+        chunkmax = takes_chunkmax(n, kk, index.contiguous)
         vals, fids = [], []
         for s, dev in enumerate(mesh.shard_devices):
             emb, sf, bias = index.shard(s)
@@ -109,7 +107,7 @@ def sharded_flat_scan_topk(queries, index: ShardedDenseIndex, k: int, mesh: Mesh
                     count("sharded_scan.chunkmax_shards")
                     v, rows = chunkmax_scan_topk(qs[s], emb, bias, kk)
                 else:
-                    v, rows = blockmax_topk(_scores_f32(qs[s].to(emb.dtype), emb, bias), kk)
+                    v, rows = blockmax_scan_topk(qs[s], emb, bias, kk)
                 vals.append(v)
                 fids.append(torch.where(v > NEG_INF * 0.5, sf[rows.clamp(min=0).long()], -1))
         mv, mf = merge_topk_across_mesh(vals, fids, int(k), mesh)

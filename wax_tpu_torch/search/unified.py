@@ -24,7 +24,7 @@ import torch
 
 from wax_tpu_torch.index.lex import analyze, auto_postings_floor
 from wax_tpu_torch.ops.bm25 import bm25_topk, pad_term_ids
-from wax_tpu_torch.ops.bm25_candidates import bm25_candidates_topk
+from wax_tpu_torch.ops.bm25_lane import bm25_candidates_topk
 from wax_tpu_torch.ops.fusion import FusedHit, rrf_fuse
 from wax_tpu_torch.parallel.sharded_hybrid import sharded_bm25_topk
 from wax_tpu_torch.search.engine import HybridSearchEngine
